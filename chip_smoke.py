@@ -1,0 +1,332 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+  1. environment: torch/CUDA versions and the card's name and power limit;
+  2. build: every CUDA kernel under src/repro_torch/csrc, compiled by nvcc
+     for sm_90a (one process per source, all at once);
+  3. kernels: each kernel at the main path's shapes, held to exact equality
+     with its plain PyTorch version on the card, and timed beside it (and
+     beside one PyTorch library call where one computes the same function);
+  4. end to end: ``repro_torch.mining.mine`` (hprepost, on the card, full
+     dataset scale) on mushroom@0.15 with early stop on and off, pumsb@0.15
+     and kosarak@0.01; each itemsets dict must equal the host PrePost miner's,
+     and every kernel's launch counter must have moved in this phase;
+  5. where the time goes: each mine again, warm, under torch.profiler —
+     device busy time, idle share and the top device ops.
+Then one JSON line describing the kernels, and last the device line.
+
+It needs a CUDA device and the repository's ``src/`` beside it; without
+either it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor fp32 rate, used for the scalar integer work
+MB = 1 << 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def assert_equal(name: str, got, want) -> int:
+    """Exact equality of integer outputs; returns the max abs error (0)."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}")
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        if err:
+            raise AssertionError(f"{name}: max abs error {err} against the plain version")
+    return 0
+
+
+def level2_wave(miner, prep, min_count):
+    """The main path's first wave on ``prep``: every frequent pair, laid out
+    and gathered exactly as ``HPrepostMiner.mine_prepared`` does."""
+    qs, ps = np.nonzero(prep.C >= min_count)
+    ranks = np.stack([qs, ps], axis=1).astype(np.int32)
+    idx, _, _ = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
+    idx_t = torch.from_numpy(idx).cuda()
+    planes = prep.packed[0].permute(2, 0, 1).contiguous()
+    a = planes[:, idx_t[2]]
+    y = planes[:2, idx_t[1]]
+    state = prep.singleton_state[0][idx_t[0]]
+    return a[0], a[1], a[2], y[0], y[1], state, len(ranks)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch.kernels as K
+    from repro_torch.core import encoding as enc
+    from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner
+    from repro_torch.core.prepost import mine_prepost
+    from repro_torch.data import synth
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.cooccur import ref as cooc_ref
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.nlist_intersect import ref as nl_ref
+    from repro_torch.mining import MineSpec, mine
+
+    # ---------------------------------------------------------- 1. environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(smi)
+    dev = torch.device("cuda")
+
+    # ---------------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f}s for {len(_cuda.SOURCES)} sources "
+        f"(parallel nvcc; per source {json.dumps({k: round(v, 1) for k, v in _cuda.build_seconds.items()})})")
+    for name, text in _cuda.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # ---------------------------------------------------------- data (set-up)
+    t0 = time.perf_counter()
+    data = {name: synth.load(name, scale=1.0) for name in ("mushroom", "pumsb", "kosarak")}
+    log(f"data: generated in {time.perf_counter() - t0:.1f}s: "
+        + ", ".join(f"{k} {v[0].shape}" for k, v in data.items()))
+    sups = {"mushroom": 0.15, "pumsb": 0.15, "kosarak": 0.01}
+    counts = {k: max(1, math.ceil(sups[k] * len(data[k][0]) - 1e-9)) for k in data}
+
+    # -------------------------------------------------------------- 3. kernels
+    entries = {}
+    miner = HPrepostMiner("cuda", HPrepostConfig())
+    preps = {k: miner.prepare(data[k][0], data[k][1], counts[k]) for k in data}
+
+    # B3 on kosarak's full rows
+    rows_k = torch.from_numpy(data["kosarak"][0]).to(dev)
+    n_bins = data["kosarak"][1]
+    w1 = torch.ones(rows_k.shape[0], dtype=torch.int32, device=dev)
+    got = K.histogram_cuda(rows_k, w1, n_bins=n_bins)
+    want = hist_ref.histogram_ref(rows_k, w1, n_bins=n_bins)
+    err = assert_equal("histogram", (got,), (want,))
+    flat = rows_k.reshape(-1).long()
+    ids = torch.where(flat >= 0, flat, n_bins)  # PAD -> one spare bin
+    ones = torch.ones_like(ids, dtype=torch.int32)
+    lib_out = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
+    R, L = rows_k.shape
+    b, by = bound(R * L * 4 + R * 4 + n_bins * 4, R * L)
+    entries["histogram"] = dict(
+        source="src/repro_torch/csrc/histogram.cu",
+        replaces="src/repro/kernels/histogram/kernel.py:22",
+        shape=f"kosarak rows {R}x{L}, {n_bins} bins", max_abs_err=err,
+        ms=time_ms(lambda: K.histogram_cuda(rows_k, w1, n_bins=n_bins)),
+        plain_ms=time_ms(lambda: hist_ref.histogram_ref(rows_k, w1, n_bins=n_bins)),
+        library_ms=time_ms(lambda: lib_out.zero_().index_add_(0, ids, ones)),
+        library_call="index_add_ over the flattened ids (PAD mapped outside the timing)",
+        bound_ms=b, bound_by=by,
+    )
+    del flat, ids, ones
+
+    # B4 on each dataset's ranked rows: pumsb (K=292) takes the global-atomics
+    # branch, mushroom (K=68) and kosarak (K=57) the shared-memory one
+    for name in ("pumsb", "mushroom", "kosarak"):
+        prep = preps[name]
+        lut = torch.from_numpy(prep.fl.rank_lut()).to(dev)
+        ranked = enc.rank_encode_torch(torch.from_numpy(data[name][0]).to(dev), lut, data[name][1])
+        k = prep.fl.k
+        wr = torch.ones(ranked.shape[0], dtype=torch.int32, device=dev)
+        got = K.cooccur_cuda(ranked, wr, n_items=k)
+        want = cooc_ref.cooccur_ref(ranked, wr, n_items=k)
+        err = assert_equal(f"cooccur {name}", (got,), (want,))
+        X = torch.zeros((ranked.shape[0], k + 1), dtype=torch.float32, device=dev)
+        X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
+        X = X[:, :k].contiguous()
+        R, L = ranked.shape
+        nvalid = (ranked >= 0).sum(1).to(torch.int64)
+        pairs = int((nvalid * nvalid).sum())
+        b, by = bound(R * L * 4 + R * 4 + k * k * 4, pairs)
+        e = dict(
+            shape=f"{name} ranked rows {R}x{L}, K={k}, {pairs} pair updates", max_abs_err=err,
+            ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k)),
+            plain_ms=time_ms(lambda: cooc_ref.cooccur_ref(ranked, wr, n_items=k), reps=3),
+            library_ms=time_ms(lambda: X.T @ X),
+            library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+            bound_ms=b, bound_by=by,
+        )
+        if name == "pumsb":
+            entries["cooccur"] = dict(source="src/repro_torch/csrc/cooccur.cu",
+                                      replaces="src/repro/kernels/cooccur/kernel.py:23", **e)
+        else:
+            entries["cooccur"][f"at_{name}"] = e
+        log(f"  B4 equal to its plain version on {name} (K={k})")
+        del X, ranked, nvalid, wr, lut
+
+    # B1 and B2 at the level-2 waves of mushroom (W=2048), pumsb and kosarak
+    # (both W=16384)
+    for name in ("mushroom", "pumsb", "kosarak"):
+        a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, n_cand = level2_wave(miner, preps[name], counts[name])
+        B, W = a_pre.shape
+        log(f"wave {name}: {n_cand} candidates -> Cpad {B}, W {W}")
+        got = K.nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)
+        want = nl_ref.nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt)
+        err1 = assert_equal(f"nlist_intersect {name}", got, want)
+        mc = counts[name]
+        for stop in (0, mc // 2, mc, 2 * mc, 1 << 30):
+            for lab in (512, 64):
+                got = K.nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop, la_block=lab)
+                want = nl_ref.nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop, la_block=lab)
+                assert_equal(f"nlist_intersect_es {name} min_count={stop} la_block={lab}", got, want)
+        log(f"  B1 and B2 equal to their plain versions on {name} "
+            f"(B2 at min_count 0, {mc // 2}, {mc}, {2 * mc}, 2^30 x la_block 512, 64)")
+        # bytes the function needs: a_pre, a_post and y_cnt read in full (B2
+        # also a_cnt), y_pre/y_post only where y_cnt != 0, the merged rows
+        # written in full, one support per candidate
+        nz = int((y_cnt != 0).sum())
+        ops = nz * (math.ceil(math.log2(W)) + 2)
+        shape = f"{name} level-2 wave: {n_cand} candidates, Cpad {B} x W {W}, {nz} nonzero Y codes"
+        b1, by1 = bound(B * W * 4 * 4 + nz * 8 + B * 4, ops)
+        b2, by2 = bound(B * W * 4 * 5 + nz * 8 + B * 4, ops)
+        e1 = dict(
+            shape=shape, max_abs_err=err1,
+            ms=time_ms(lambda: K.nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)),
+            plain_ms=time_ms(lambda: nl_ref.nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt), reps=3),
+            library_ms=None, bound_ms=b1, bound_by=by1,
+        )
+        e2 = dict(
+            shape=shape + f", min_count {mc}, la_block 512", max_abs_err=0,
+            ms=time_ms(lambda: K.nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, mc)),
+            plain_ms=time_ms(lambda: nl_ref.nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, mc), reps=3),
+            library_ms=None, bound_ms=b2, bound_by=by2,
+        )
+        # one entry per kernel: the mushroom wave's numbers at top level, the
+        # W=16384 waves' (pumsb, kosarak) beside them
+        for kname, e, line in (("nlist_intersect", e1, 44), ("nlist_intersect_es", e2, 89)):
+            if name == "mushroom":
+                entries[kname] = dict(
+                    source="src/repro_torch/csrc/nlist_intersect.cu",
+                    replaces=f"src/repro/kernels/nlist_intersect/kernel.py:{line}", **e)
+            else:
+                entries[kname][f"at_{name}"] = e
+        del a_pre, a_post, a_cnt, y_pre, y_post, y_cnt
+    # phase 4 reports each mine's peak memory: nothing of phase 3 stays alive
+    del preps, prep, rows_k, w1, lib_out, got, want
+    torch.cuda.synchronize()
+    log("kernels: all four equal to their plain versions on the card")
+
+    # ---------------------------------------------------------- 4. end to end
+    runs = [("mushroom", True), ("mushroom", False), ("pumsb", True), ("kosarak", True)]
+    K.reset_launches()
+    per_run = []
+    for name, es in runs:
+        rows, n_items = data[name]
+        before = K.launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mine(rows, n_items, MineSpec(algorithm="hprepost", min_sup=sups[name], early_stop=es),
+                   device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        moved = {k: v - before[k] for k, v in K.launches().items()}
+        t0 = time.perf_counter()
+        ref = mine_prepost(rows, n_items, res.min_count)
+        t_ref = time.perf_counter() - t0
+        if res.itemsets != ref.itemsets:
+            raise AssertionError(f"{name} early_stop={es}: {len(res.itemsets)} itemsets vs "
+                                 f"{len(ref.itemsets)} from the host PrePost miner")
+        stages = {k: round(v, 4) for k, v in res.stage_times_s.items()}
+        log(f"e2e {name}@{sups[name]} early_stop={es}: {len(rows)} rows, min_count {res.min_count}, "
+            f"{len(res.itemsets)} itemsets == host mine_prepost ({t_ref:.1f}s); wall {wall:.3f}s, "
+            f"peak device memory {peak / MB:.1f} MiB, launches {json.dumps(moved)}, stages {json.dumps(stages)}")
+        per_run.append((name, es, moved))
+    total = K.launches()
+    es_on = [m for n, e, m in per_run if e]
+    es_off = [m for n, e, m in per_run if not e]
+    if not all(m["nlist_intersect_es"] > 0 for m in es_on):
+        raise AssertionError(f"the early-stop wave kernel did not run on every early-stop mine: {per_run}")
+    if not all(m["nlist_intersect"] > 0 for m in es_off):
+        raise AssertionError(f"the exact wave kernel did not run on the no-early-stop mine: {per_run}")
+    if not all(m["histogram"] > 0 and m["cooccur"] > 0 for _, _, m in per_run):
+        raise AssertionError(f"a prep kernel did not run on every mine: {per_run}")
+
+    # ------------------------------------------------- 5. where the time goes
+    # each mine once more, warm, under the profiler: device busy time (the
+    # union of the device-side kernel and copy intervals) over the host wall
+    # time, and the device ops that take most of it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, es in runs:
+        rows, n_items = data[name]
+        spec = MineSpec(algorithm="hprepost", min_sup=sups[name], early_stop=es)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = mine(rows, n_items, spec, device="cuda")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans, by_name = [], {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA or ev.name.startswith("Activity Buffer"):
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            tot, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + (ev.time_range.end - ev.time_range.start) / 1e3, n + 1)
+        busy, last = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > last:
+                busy += (b - max(a, last)) / 1e3
+                last = b
+        stages = {k: round(v, 4) for k, v in res.stage_times_s.items() if not k.startswith(("planned", "host_"))}
+        head = f"profile {name}@{sups[name]} early_stop={es} (warm): wall {wall_ms:.1f}ms"
+        if busy > 0:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+            top = "; ".join(f"{k[:70]} x{n} {ms:.3f}ms" for k, (ms, n) in top)
+            log(f"{head}, device busy {busy:.1f}ms, idle share {1 - busy / wall_ms:.3f}; "
+                f"stages {json.dumps(stages)}; top device ops: {top}")
+        else:
+            log(f"{head}, device time not measured (the profiler recorded none)")
+
+    kernels = []
+    for kname, e in entries.items():
+        kernels.append(dict(name=kname, route="cuda", launches=total[kname], kernel_ms=e["ms"], **e))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""Plain PyTorch versions of the wave kernels B1/B2: the batched
+searchsorted N-list intersection with its fused support, and a vectorised
+model of the early-stop twin's tile-order masking. They run on any device;
+the wrappers in ``kernel.py`` take them only for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.nlist import intersect_torch
+
+
+def nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt):
+    """(merged (B, La) int32, supports (B,) int32): the B1 contract."""
+    merged = intersect_torch(a_pre, a_post, y_pre, y_post, y_cnt)
+    return merged.to(torch.int32), merged.sum(dim=1).to(torch.int32)
+
+
+def nlist_intersect_masked_ref(
+    a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_count, *, la_block=512
+):
+    """The B2 contract: scan A-row tiles of ``la_block`` slots in order;
+    before each tile a candidate is alive iff support-so-far plus the
+    inclusive A-count suffix mass of the remaining tiles can still reach
+    ``min_count``; dead candidates' tiles are zeroed and their support
+    frozen. ``min_count <= 0`` reproduces the exact path.
+
+    Death is monotone (a dead candidate's support stops growing while the
+    suffix mass only shrinks), so the first dead tile is the first tile
+    where the all-alive prefix sum plus the suffix mass misses the
+    threshold — no loop over tiles."""
+    exact = intersect_torch(a_pre, a_post, y_pre, y_post, y_cnt)  # int64
+    B, La = exact.shape
+    lab = max(1, min(int(la_block), La))
+    nt = (La + lab - 1) // lab
+    pad = nt * lab - La
+
+    def tiles(x):
+        return torch.nn.functional.pad(x.to(torch.int64), (0, pad)).reshape(B, nt, lab).sum(2)
+
+    tsum, mass = tiles(exact), tiles(a_cnt)
+    rem = torch.flip(torch.cumsum(torch.flip(mass, [1]), 1), [1])  # inclusive suffix
+    before = torch.cumsum(tsum, 1) - tsum  # support before each tile if all alive
+    dead = torch.cummax((before + rem < int(min_count)).to(torch.int32), dim=1).values.bool()
+    keep = (~dead).repeat_interleave(lab, dim=1)[:, :La]
+    merged = exact * keep
+    return merged.to(torch.int32), merged.sum(dim=1).to(torch.int32)

@@ -8,6 +8,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped with a reason where none is present"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,126 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+the miner on the card against the miner on the CPU — on a CUDA device
+only (marker ``cuda``; each test skips with a reason where there is none).
+This module imports nothing of JAX, so it runs on the GPU machine:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import encoding as enc
+from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner
+from repro_torch.core.nlist import INF
+from repro_torch.core.ppc import build_ppc
+from repro_torch.data.synth import load, random_db
+from repro_torch.kernels.cooccur.kernel import cooccur_cuda
+from repro_torch.kernels.cooccur.ref import cooccur_ref
+from repro_torch.kernels.histogram.kernel import histogram_cuda
+from repro_torch.kernels.histogram.ref import histogram_ref
+from repro_torch.kernels.nlist_intersect.kernel import nlist_intersect_cuda, nlist_intersect_es_cuda
+from repro_torch.kernels.nlist_intersect.ref import (
+    nlist_intersect_fused_ref,
+    nlist_intersect_masked_ref,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def T(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def _nlist_batch(rng, B, La, Ly):
+    """Tree-valid PP-code batches (A with its node counts), padded
+    pre=INT32_MAX, post=-1, cnt=0."""
+    out = [np.full((B, La), INF, np.int32), np.full((B, La), -1, np.int32),
+           np.zeros((B, La), np.int32), np.full((B, Ly), INF, np.int32),
+           np.full((B, Ly), -1, np.int32), np.zeros((B, Ly), np.int32)]
+    for b in range(B):
+        n_items = int(rng.integers(2, 16))
+        rows = random_db(rng, int(rng.integers(5, 120)), n_items, min(8, n_items))
+        fl = enc.build_flist(enc.item_support(rows, n_items), 1)
+        if fl.k < 2:
+            continue
+        urows, w = enc.dedup_rows(enc.rank_encode(rows, fl))
+        if not len(urows):
+            continue
+        nls = build_ppc(urows, w).nlists(fl.k)
+        qa, qy = sorted(rng.choice(fl.k, size=2, replace=False))
+        A, Y = nls[qa][:La], nls[qy][:Ly]
+        for i, (src, col) in enumerate(((A, 0), (A, 1), (A, 2), (Y, 0), (Y, 1), (Y, 2))):
+            out[i][b, : len(src)] = src[:, col]
+    return out
+
+
+@pytest.mark.parametrize("n_bins", [7, 1000, 41270, 70000])
+def test_histogram_kernel(cuda, n_bins):
+    rng = np.random.default_rng(n_bins)
+    rows = T(rng.integers(-1, n_bins, size=(3000, 20)).astype(np.int32), cuda)
+    w = T(rng.integers(0, 5, size=3000).astype(np.int32), cuda)
+    before = histogram_cuda.launches
+    got = histogram_cuda(rows, w, n_bins=n_bins)
+    torch.cuda.synchronize()
+    assert histogram_cuda.launches == before + 1
+    assert torch.equal(got, histogram_ref(rows, w, n_bins=n_bins))
+
+
+@pytest.mark.parametrize("K", [1, 60, 300])
+def test_cooccur_kernel(cuda, K):
+    rng = np.random.default_rng(K)
+    rows = T(rng.integers(-1, K, size=(2000, 17)).astype(np.int32), cuda)
+    w = T(rng.integers(0, 4, size=2000).astype(np.int32), cuda)
+    got = cooccur_cuda(rows, w, n_items=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cooccur_ref(rows, w, n_items=K))
+
+
+@pytest.mark.parametrize("B,La,Ly", [(1, 1, 1), (5, 40, 70), (7, 130, 257), (3, 20000, 20000)])
+def test_nlist_kernels(cuda, B, La, Ly):
+    """(3, 20000, 20000) needs more than the shared memory a block may use:
+    the kernels' global-memory path."""
+    rng = np.random.default_rng(B * La + Ly)
+    a_pre, a_post, a_cnt, y_pre, y_post, y_cnt = (T(x, cuda) for x in _nlist_batch(rng, B, La, Ly))
+    got = nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)
+    want = nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for stop in (0, 3, 50, 1 << 20):
+        for lab in (1, 8, 512):
+            got = nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop, la_block=lab)
+            want = nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop,
+                                              la_block=lab)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+def test_wrappers_refuse_bad_tensors(cuda):
+    x = torch.zeros((4, 4), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        histogram_cuda(x, torch.ones(4, dtype=torch.int32, device=cuda), n_bins=3)
+    y = torch.zeros((4, 8), dtype=torch.int32, device=cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        cooccur_cuda(y, torch.ones(4, dtype=torch.int32, device=cuda), n_items=3)
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_miner_on_card_matches_cpu(cuda, early_stop):
+    rows, n_items = load("mushroom", scale=0.2)
+    gpu = HPrepostMiner(cuda, HPrepostConfig(early_stop=early_stop))
+    cpu = HPrepostMiner("cpu", HPrepostConfig(early_stop=early_stop))
+    assert gpu.mine(rows, n_items, 300).itemsets == cpu.mine(rows, n_items, 300).itemsets
+    assert gpu.stage_counters == cpu.stage_counters
+    g, c = gpu.prepare(rows, n_items, 300).to_host(), cpu.prepare(rows, n_items, 300).to_host()
+    assert sorted(g) == sorted(c)
+    for k in g:
+        if isinstance(g[k], np.ndarray):
+            assert g[k].dtype == c[k].dtype and g[k].tobytes() == c[k].tobytes(), k
+        else:
+            assert g[k] == c[k], k

@@ -1,0 +1,162 @@
+"""Port ``HPrepostMiner(device="cpu")`` vs the reference ``HPrepostMiner``
+on the 1×1 mesh with ``backend="jnp"``: itemsets, stage counters, the
+planning counters and the ``PreparedDB.to_host()`` payload (key by key,
+dtype and bytes), with early stop on and off. Tolerance 0."""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.hprepost import HPrepostConfig as JConfig
+from repro.core.hprepost import HPrepostMiner as JMiner
+from repro.core.hprepost import PreparedDB as JPreparedDB
+from repro.data.synth import load, random_db
+from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner, PreparedDB
+from repro_torch.core.prepost import mine_prepost
+from repro_torch.mining import telemetry
+from repro_torch.fault import failures
+
+PLANNING = ("planned_candidates", "host_pruned_parent", "host_pruned_subset")
+
+
+@pytest.fixture(scope="module")
+def mesh11():
+    from repro.compat import make_mesh
+
+    return make_mesh((1, 1), ("data", "model"))
+
+
+_JAX_MINERS = {}
+
+
+def _pair(mesh, **cfg):
+    # reference miners are cached per config so their jit caches stay warm
+    key = tuple(sorted(cfg.items()))
+    jm = _JAX_MINERS.get(key)
+    if jm is None:
+        jm = _JAX_MINERS[key] = JMiner(mesh, config=JConfig(backend="jnp", **cfg))
+    tm = HPrepostMiner("cpu", config=HPrepostConfig(**cfg))
+    return jm, tm
+
+
+def assert_payload_equal(a: dict, b: dict):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        va, vb = a[k], b[k]
+        if isinstance(va, np.ndarray):
+            assert va.dtype == vb.dtype and va.shape == vb.shape, k
+            assert va.tobytes() == vb.tobytes(), k
+        else:
+            assert type(va) is type(vb) and va == vb, k
+
+
+def check_parity(mesh, rows, n_items, min_count, max_k=None, **cfg):
+    jm, tm = _pair(mesh, **cfg)
+    j0 = dict(jm.stage_counters)
+    assert_payload_equal(tm.prepare(rows, n_items, min_count).to_host(),
+                         jm.prepare(rows, n_items, min_count).to_host())
+    jr = jm.mine(rows, n_items, min_count, max_k=max_k)
+    tr = tm.mine(rows, n_items, min_count, max_k=max_k)
+    assert tr.itemsets == jr.itemsets
+    assert (tr.n_explicit, tr.total_count, tr.peak_bytes) == (jr.n_explicit, jr.total_count, jr.peak_bytes)
+    np.testing.assert_array_equal(tr.flist_items, jr.flist_items)
+    assert tm.stage_counters == {k: v - j0[k] for k, v in jm.stage_counters.items()}
+    for key in PLANNING:
+        assert tm.last_stage_times[key] == jm.last_stage_times[key], key
+    assert sorted(tm.last_stage_times) == sorted(jm.last_stage_times)
+    return tr
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_paper_db_parity(mesh11, paper_db, early_stop):
+    rows, n_items = paper_db
+    res = check_parity(mesh11, rows, n_items, 3, candidate_unit=4, early_stop=early_stop)
+    assert res.itemsets == mine_prepost(rows, n_items, 3).itemsets
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("min_count", [1, 3])
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_random_db_parity(mesh11, seed, min_count, early_stop):
+    rows = random_db(np.random.default_rng(seed), 80, 12, 7)
+    res = check_parity(mesh11, rows, 12, min_count, candidate_unit=8, early_stop=early_stop)
+    assert res.itemsets == mine_prepost(rows, 12, min_count).itemsets
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_dense_parity(mesh11, early_stop, pipeline):
+    """Deep enough for the Apriori-closure prune (widths >= 4)."""
+    rows, n_items = load("mushroom", scale=0.03)
+    res = check_parity(mesh11, rows, n_items, 45, early_stop=early_stop, pipeline_waves=pipeline)
+    assert max(len(s) for s in res.itemsets) >= 4
+
+
+@pytest.mark.parametrize("max_k", [1, 2])
+def test_max_k_and_tiny_paths(mesh11, paper_db, max_k):
+    rows, n_items = paper_db
+    check_parity(mesh11, rows, n_items, 2, max_k=max_k, candidate_unit=4)
+    check_parity(mesh11, rows, n_items, 7, candidate_unit=4)  # F1 only survives
+
+
+def test_from_host_of_reference_payload(mesh11):
+    rows, n_items = load("chess", scale=0.05)
+    jm, tm = _pair(mesh11)
+    payload = jm.prepare(rows, n_items, 100).to_host()
+    prep = PreparedDB.from_host(payload, tm)
+    assert_payload_equal(prep.to_host(), JPreparedDB.from_host(payload, jm).to_host())
+    for mc in (100, 130):
+        assert tm.mine_prepared(prep, mc).itemsets == jm.mine(rows, n_items, mc).itemsets
+    with pytest.raises(ValueError, match="data shard"):
+        PreparedDB.from_host({**payload, "n_shards": 2}, tm)
+
+
+def test_prep_key_matches_reference():
+    # the port keeps only the reference's fields that it reads; on those the
+    # prep keys agree, and every port field is one of the reference's
+    t = HPrepostConfig(la_block=64, backend="torch", early_stop=False, max_k=3)
+    j = JConfig(la_block=64, backend="jnp", early_stop=False, max_k=3)
+    tv, jv = dataclass_values(t.prep_key()), dataclass_values(j.prep_key())
+    assert set(tv) <= set(jv)
+    assert tv == {k: jv[k] for k in tv}
+    assert set(t.EXECUTION_ONLY) <= set(j.EXECUTION_ONLY)
+
+
+def dataclass_values(cfg):
+    import dataclasses
+
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def test_wave_spans_and_chaos_point(paper_db):
+    rows, n_items = paper_db
+    miner = HPrepostMiner("cpu", HPrepostConfig(candidate_unit=4))
+    rec = telemetry.TraceRecorder()
+    with telemetry.attached(rec):
+        miner.mine(rows, n_items, 2)
+    names = [s["name"] for s in rec.spans.values()]
+    assert names.count("mine.wave") == miner.stage_counters["waves"] > 0
+    assert "mine.reduce" in names
+    inj = failures.ChaosInjector().arm("mine.wave")
+    with failures.installed(inj), pytest.raises(failures.SimulatedFailure):
+        miner.mine(rows, n_items, 2)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, paper_db):
+    from repro_torch.mining import MineSpec, mine
+    from repro_torch.mining.miners import HPrepostFrontend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HPrepostMiner()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HPrepostFrontend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mine(*paper_db, MineSpec(min_count=2))
+    assert HPrepostMiner("cpu").backend == "torch"
+
+
+def test_tune_and_cuda_backend_raise_on_cpu():
+    with pytest.raises(NotImplementedError, match="KernelTuner"):
+        HPrepostMiner("cpu", HPrepostConfig(tune=True))
+    with pytest.raises(ValueError, match="not available"):
+        HPrepostMiner("cpu", HPrepostConfig(backend="cuda"))

@@ -1,0 +1,193 @@
+"""Port kernels' plain versions vs the reference's Pallas kernels
+(``interpret=True``) and oracles, at the shapes of tests/test_kernels.py,
+and the ops' backend checks. Integer outputs: tolerance 0. The CUDA
+kernels themselves are tested in tests/test_torch_cuda.py."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import encoding as jenc
+from repro.core.nlist import INF, pack_nlists
+from repro.core.ppc import build_ppc
+from repro.data.synth import random_db
+from repro.kernels.cooccur.kernel import cooccur_pallas
+from repro.kernels.histogram.kernel import histogram_pallas
+from repro.kernels.histogram.ops import item_histogram as jax_item_histogram
+from repro.kernels.nlist_intersect.kernel import nlist_intersect_pallas
+from repro.kernels.nlist_intersect.ref import nlist_intersect_masked_ref as jax_masked_ref
+from repro_torch.kernels.cooccur.kernel import cooccur_cuda
+from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
+from repro_torch.kernels.cooccur.ref import cooccur_ref
+from repro_torch.kernels.histogram.kernel import histogram_cuda
+from repro_torch.kernels.histogram.ops import item_histogram
+from repro_torch.kernels.nlist_intersect.kernel import nlist_intersect_cuda, nlist_intersect_es_cuda
+from repro_torch.kernels.nlist_intersect.ops import nlist_intersect
+from repro_torch.kernels.nlist_intersect.ref import (
+    nlist_intersect_fused_ref,
+    nlist_intersect_masked_ref,
+)
+
+
+def T(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+@pytest.mark.parametrize("R,L,n_bins", [(1, 1, 1), (7, 3, 5), (64, 8, 33), (300, 12, 129), (513, 5, 1000)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_histogram_vs_pallas(R, L, n_bins, weighted):
+    rng = np.random.default_rng(R * 1000 + n_bins)
+    rows = rng.integers(-1, n_bins, size=(R, L)).astype(np.int32)
+    w = (rng.integers(1, 5, size=R) if weighted else np.ones(R)).astype(np.int32)
+    want = histogram_pallas(jnp.asarray(rows), jnp.asarray(w), n_bins=n_bins,
+                            row_block=64, bin_block=128, interpret=True)
+    got = histogram_cuda(T(rows), T(w), n_bins=n_bins)  # CPU tensors: the plain version
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_histogram_large_universe_vs_reference():
+    """Above the reference's 8192-bin one-hot cut-off (its scatter path),
+    at kosarak's universe; the plain version builds no one-hot tensor."""
+    rng = np.random.default_rng(5)
+    rows = rng.integers(-1, 41270, size=(2000, 48)).astype(np.int32)
+    want = jax_item_histogram(jnp.asarray(rows), n_bins=41270, backend="jnp")
+    got = item_histogram(T(rows), n_bins=41270)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("R,L,K", [(1, 1, 1), (9, 4, 7), (100, 6, 40), (257, 10, 130)])
+def test_cooccur_vs_pallas(R, L, K):
+    rng = np.random.default_rng(R + K)
+    rows = rng.integers(-1, K, size=(R, L)).astype(np.int32)
+    w = rng.integers(1, 4, size=R).astype(np.int32)
+    want = cooccur_pallas(jnp.asarray(rows), jnp.asarray(w), n_items=K,
+                          row_block=64, k_block=64, interpret=True)
+    got = cooccur_cuda(T(rows), T(w), n_items=K)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cooccur_chunking_is_exact(monkeypatch):
+    from repro_torch.kernels.cooccur import ref
+
+    rng = np.random.default_rng(3)
+    rows = rng.integers(-1, 20, size=(300, 9)).astype(np.int32)
+    w = rng.integers(1, 4, size=300).astype(np.int32)
+    one = cooccur_ref(T(rows), T(w), n_items=20)
+    monkeypatch.setattr(ref, "CHUNK_PAIRS", 200)
+    small = cooccur_ref(T(rows), T(w), n_items=20)
+    np.testing.assert_array_equal(one.numpy(), small.numpy())
+
+
+def _nlist_batch(rng, B, La, Ly, with_a_cnt=False):
+    """Batches of tree-valid PP-codes (tests/test_kernels.py's sampler),
+    plus A's own node counts when asked."""
+    a_pre = np.full((B, La), INF, np.int32)
+    a_post = np.full((B, La), -1, np.int32)
+    a_cnt = np.zeros((B, La), np.int32)
+    y_pre = np.full((B, Ly), INF, np.int32)
+    y_post = np.full((B, Ly), -1, np.int32)
+    y_cnt = np.zeros((B, Ly), np.int32)
+    for b in range(B):
+        n_items = int(rng.integers(2, 16))
+        rows = random_db(rng, int(rng.integers(5, 120)), n_items, min(8, n_items))
+        fl = jenc.build_flist(jenc.item_support(rows, n_items), 1)
+        if fl.k < 2:
+            continue
+        urows, w = jenc.dedup_rows(jenc.rank_encode(rows, fl))
+        if not len(urows):
+            continue
+        nls = build_ppc(urows, w).nlists(fl.k)
+        qa, qy = sorted(rng.choice(fl.k, size=2, replace=False))
+        A, Y = nls[qa][:La], nls[qy][:Ly]
+        a_pre[b, : len(A)], a_post[b, : len(A)], a_cnt[b, : len(A)] = A[:, 0], A[:, 1], A[:, 2]
+        y_pre[b, : len(Y)], y_post[b, : len(Y)] = Y[:, 0], Y[:, 1]
+        y_cnt[b, : len(Y)] = Y[:, 2]
+    if with_a_cnt:
+        return a_pre, a_post, a_cnt, y_pre, y_post, y_cnt
+    return a_pre, a_post, y_pre, y_post, y_cnt
+
+
+@pytest.mark.parametrize("B,La,Ly", [(1, 1, 1), (3, 8, 5), (5, 40, 70), (2, 130, 257)])
+def test_nlist_intersect_vs_pallas(B, La, Ly):
+    rng = np.random.default_rng(B * La + Ly)
+    arrs = _nlist_batch(rng, B, La, Ly)
+    want, wsup = nlist_intersect_pallas(*map(jnp.asarray, arrs), la_block=64, ly_block=64,
+                                        batch_block=3, interpret=True)
+    got, sup = nlist_intersect_cuda(*map(T, arrs))
+    assert got.dtype == sup.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(wsup))
+
+
+def test_nlist_intersect_zero_count_and_pad_slots():
+    rng = np.random.default_rng(7)
+    a_pre, a_post, y_pre, y_post, y_cnt = (x.copy() for x in _nlist_batch(rng, 5, 24, 16))
+    y_cnt[1] = 0
+    a_pre[2, :], a_post[2, :] = INF, -1
+    y_pre[3, :], y_post[3, :], y_cnt[3, :] = INF, -1, 0
+    args = (a_pre, a_post, y_pre, y_post, y_cnt)
+    want, wsup = nlist_intersect_pallas(*map(jnp.asarray, args), la_block=8, ly_block=8,
+                                        batch_block=2, interpret=True)
+    got, sup = nlist_intersect_cuda(*map(T, args))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(wsup))
+    for b in (1, 2, 3):
+        assert not got[b].any() and sup[b] == 0
+
+
+def test_nlist_intersect_real_tree(paper_db):
+    rows, n_items = paper_db
+    fl = jenc.build_flist(jenc.item_support(rows, n_items), 3)
+    urows, w = jenc.dedup_rows(jenc.rank_encode(rows, fl))
+    packed = pack_nlists(build_ppc(urows, w).nlists(fl.k), width=8).astype(np.int32)
+    pairs = [(q, p) for p in range(fl.k) for q in range(p)]
+    a = packed[[q for q, _ in pairs]]
+    y = packed[[p for _, p in pairs]]
+    args = (a[:, :, 0], a[:, :, 1], y[:, :, 0], y[:, :, 1], y[:, :, 2])
+    want, wsup = nlist_intersect_pallas(*map(jnp.asarray, args), la_block=8, ly_block=8,
+                                        batch_block=4, interpret=True)
+    got, sup = nlist_intersect_cuda(*map(T, args))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(wsup))
+    assert int(sup[pairs.index((0, 2))]) == 3
+
+
+@pytest.mark.parametrize("la_block", [4, 16, 512])
+@pytest.mark.parametrize("stop", [0, 1, 5, 40, 1 << 20])
+def test_masked_plain_vs_reference(la_block, stop):
+    rng = np.random.default_rng(la_block + stop)
+    arrs = _nlist_batch(rng, 6, 48, 64, with_a_cnt=True)
+    want, wsup = jax_masked_ref(*map(jnp.asarray, arrs), stop, la_block=la_block)
+    got, sup = nlist_intersect_es_cuda(*map(T, arrs), stop, la_block=la_block)
+    assert got.dtype == sup.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(wsup))
+    if stop <= 0:
+        exact, esup = nlist_intersect_fused_ref(*map(T, (arrs[0], arrs[1], *arrs[3:])))
+        np.testing.assert_array_equal(got.numpy(), exact.numpy())
+        np.testing.assert_array_equal(sup.numpy(), esup.numpy())
+
+
+def test_ops_check_backend_against_device():
+    rows = torch.zeros((2, 2), dtype=torch.int32)
+    np.testing.assert_array_equal(item_histogram(rows, n_bins=3, backend="torch").numpy(), [4, 0, 0])
+    for op in (lambda b: item_histogram(rows, n_bins=3, backend=b),
+               lambda b: cooccurrence_matrix(rows, n_items=3, backend=b),
+               lambda b: nlist_intersect(rows, rows, rows, rows, rows, backend=b)):
+        with pytest.raises(ValueError, match="not available"):
+            op("cuda")
+        with pytest.raises(ValueError, match="registered backends"):
+            op("pallas")
+
+
+def test_ops_early_stop_dispatch():
+    rng = np.random.default_rng(11)
+    a_pre, a_post, a_cnt, y_pre, y_post, y_cnt = map(T, _nlist_batch(rng, 4, 32, 32, with_a_cnt=True))
+    exact = nlist_intersect(a_pre, a_post, y_pre, y_post, y_cnt)
+    masked = nlist_intersect(a_pre, a_post, y_pre, y_post, y_cnt, a_cnt=a_cnt,
+                             early_stop=True, min_count=1 << 20, la_block=8)
+    want = nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, 1 << 20, la_block=8)
+    assert not torch.equal(exact[1], masked[1]) or not exact[1].any()
+    assert torch.equal(masked[0], want[0]) and torch.equal(masked[1], want[1])

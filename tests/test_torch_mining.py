@@ -1,0 +1,144 @@
+"""Port front door vs reference: ``repro_torch.mining.mine`` against
+``repro.mining.mine`` for every ported miner, the backend registry, the
+one-shot CLI, and import isolation (no JAX, nothing of ``repro``)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.mining as jmining
+import repro_torch.mining as tmining
+from repro.data.synth import load, random_db
+from repro_torch.mining import tune
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _dbs():
+    from repro.core.encoding import pad_transactions
+
+    from conftest import PAPER_TX
+
+    return [
+        ("paper", pad_transactions(PAPER_TX), 7, {"min_count": 3}),
+        ("random", random_db(np.random.default_rng(4), 90, 12, 6), 12, {"min_count": 3}),
+        ("chess", *load("chess", scale=0.05), {"min_sup": 0.6}),
+    ]
+
+
+# the brute-force oracle only on the small databases
+CASES = [(a, db) for a in ("hprepost", "prepost", "prepost+", "bruteforce") for db in _dbs()
+         if a != "bruteforce" or len(db[1]) <= 100]
+
+
+@pytest.mark.parametrize("algorithm,db", CASES, ids=[f"{a}-{db[0]}" for a, db in CASES])
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_mine_front_door_parity(algorithm, db, early_stop):
+    _, rows, n_items, thr = db
+    want = jmining.mine(rows, n_items, jmining.MineSpec(
+        algorithm=algorithm, backend="jnp", early_stop=early_stop, **thr))
+    got = tmining.mine(rows, n_items, tmining.MineSpec(
+        algorithm=algorithm, early_stop=early_stop, **thr), device="cpu")
+    assert got.itemsets == want.itemsets
+    for f in ("algorithm", "total_count", "n_explicit", "min_count", "n_rows", "peak_bytes"):
+        assert getattr(got, f) == getattr(want, f), f
+    if want.flist_items is None:
+        assert got.flist_items is None
+    else:
+        np.testing.assert_array_equal(got.flist_items, want.flist_items)
+    if algorithm == "hprepost":
+        for k in ("planned_candidates", "host_pruned_parent", "host_pruned_subset"):
+            assert got.stage_times_s[k] == want.stage_times_s[k], k
+
+
+@pytest.mark.parametrize("patterns", ["closed", "maximal", "top_rank_k"])
+def test_pattern_post_passes(paper_db, patterns):
+    rows, n_items = paper_db
+    want = jmining.mine(rows, n_items, jmining.MineSpec(min_count=2, patterns=patterns, backend="jnp"))
+    got = tmining.mine(rows, n_items, tmining.MineSpec(min_count=2, patterns=patterns), device="cpu")
+    assert got.itemsets == want.itemsets
+
+
+@pytest.mark.parametrize("name", ["pallas", "pallas-tpu", "pallas-gpu", "pallas-interpret", "jnp", "triton"])
+def test_reference_backend_names_rejected(name):
+    with pytest.raises(ValueError, match="registered backends: auto, cuda, torch"):
+        tmining.MineSpec(min_count=1, backend=name).resolve(10)
+    with pytest.raises(ValueError, match="registered backends"):
+        tune.resolve_backend(name, "cpu")
+
+
+def test_backend_registry_keys_on_device_type():
+    assert tune.registered_backends() == ["auto", "cuda", "torch"]
+    assert tune.resolve_backend("auto", "cpu") == "torch"
+    assert tune.resolve_backend("auto", "cuda") == "cuda"
+    assert tune.resolve_backend("torch", "cuda") == "torch"
+    assert tune.resolve_backend("cuda", "cuda") == "cuda"
+    with pytest.raises(ValueError, match="not available"):
+        tune.resolve_backend("cuda", "cpu")
+    plan = tune.static_plan("auto", 64, True, "cpu")
+    assert (plan.backend, plan.la_block, plan.early_stop, plan.source) == ("torch", 64, True, "config")
+    assert [tune._bucket(n, 8, 512) for n in (1, 9, 300, 5000)] == [8, 16, 512, 512]
+
+
+def test_cli_one_shot_matches_reference(capsys):
+    from repro.launch.mine import main as jmain
+    from repro_torch.launch.mine import main as tmain
+
+    args = ["--dataset", "chess", "--scale", "0.05", "--min-sup", "0.6", "--top", "3"]
+    got = tmain(args + ["--device", "cpu"])
+    want = jmain(args + ["--backend", "jnp"])
+    assert got.itemsets == want.itemsets
+    assert "hprepost:" in capsys.readouterr().out
+    got = tmain(args + ["--device", "cpu", "--no-early-stop", "--algo", "prepost"])
+    assert got.itemsets == want.itemsets
+
+
+def _port_modules():
+    pkg = ROOT / "src" / "repro_torch"
+    return sorted(
+        ".".join(("repro_torch", *p.relative_to(pkg).with_suffix("").parts)).removesuffix(".__init__")
+        for p in pkg.rglob("*.py")
+    )
+
+
+def test_port_imports_neither_jax_nor_reference():
+    mods = _port_modules()
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))"
+        " or n == 'repro' or n.startswith('repro.'))\n"
+        "print('LOADED', len(sys.modules)); print('BAD', bad)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+    assert len(mods) >= 25
+
+
+def test_chip_smoke_imports_and_cpu_exit(tmp_path):
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert not {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")}
+    if torch.cuda.is_available():
+        return  # the full smoke runs on the card, not inside the tests
+    # without a CUDA device, and alone in a directory, it exits non-zero and
+    # prints no result
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                             text=True, timeout=300, cwd=cwd)
+        assert out.returncode != 0 and out.stdout == ""

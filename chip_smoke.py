@@ -9,6 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
   3. kernels: each kernel at the main path's shapes, held to exact equality
      with its plain PyTorch version on the card, and timed beside it (and
      beside one PyTorch library call where one computes the same function);
+     B1/B2 through the wave entry the miner calls, B4 also on a weighted,
+     repeated-item case at pumsb's shape;
   4. end to end: ``repro_torch.mining.mine`` (hprepost, on the card, full
      dataset scale) on mushroom@0.15 with early stop on and off, pumsb@0.15
      and kosarak@0.01; each itemsets dict must equal the host PrePost miner's,
@@ -41,12 +43,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events).
+
+    ``queued``: the stream is held by a sleep kernel while the host enqueues
+    the launches, so they run back to back and the events time the device
+    alone, not the host's launch overhead. ``queued=False`` is the earlier
+    method (events around launches issued as the host gets to them), kept
+    so that numbers taken that way can be compared like for like."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(1_000_000 * reps)  # ~0.6 ms a launch at 1.7 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -73,16 +83,14 @@ def assert_equal(name: str, got, want) -> int:
 
 def level2_wave(miner, prep, min_count):
     """The main path's first wave on ``prep``: every frequent pair, laid out
-    and gathered exactly as ``HPrepostMiner.mine_prepared`` does."""
+    as ``HPrepostMiner.mine_prepared`` does — the (3, K, W) planes, the
+    singleton states and the wave's (3, Cpad) index rows, which the fused
+    wave kernel reads in place."""
     qs, ps = np.nonzero(prep.C >= min_count)
     ranks = np.stack([qs, ps], axis=1).astype(np.int32)
     idx, _, _ = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
-    idx_t = torch.from_numpy(idx).cuda()
     planes = prep.packed[0].permute(2, 0, 1).contiguous()
-    a = planes[:, idx_t[2]]
-    y = planes[:2, idx_t[1]]
-    state = prep.singleton_state[0][idx_t[0]]
-    return a[0], a[1], a[2], y[0], y[1], state, len(ranks)
+    return planes, planes[2], torch.from_numpy(idx).cuda(), len(ranks)
 
 
 def main() -> int:
@@ -152,6 +160,7 @@ def main() -> int:
         replaces="src/repro/kernels/histogram/kernel.py:22",
         shape=f"kosarak rows {R}x{L}, {n_bins} bins", max_abs_err=err,
         ms=time_ms(lambda: K.histogram_cuda(rows_k, w1, n_bins=n_bins)),
+        unqueued_ms=time_ms(lambda: K.histogram_cuda(rows_k, w1, n_bins=n_bins), queued=False),
         plain_ms=time_ms(lambda: hist_ref.histogram_ref(rows_k, w1, n_bins=n_bins)),
         library_ms=time_ms(lambda: lib_out.zero_().index_add_(0, ids, ones)),
         library_call="index_add_ over the flattened ids (PAD mapped outside the timing)",
@@ -159,8 +168,9 @@ def main() -> int:
     )
     del flat, ids, ones
 
-    # B4 on each dataset's ranked rows: pumsb (K=292) takes the global-atomics
-    # branch, mushroom (K=68) and kosarak (K=57) the shared-memory one
+    # B4 on each dataset's ranked rows (pumsb K=292: 15 output tiles;
+    # mushroom K=68: 3; kosarak K=57: 1), then a weighted, repeated-item
+    # case at pumsb's shape, which sends rows through the exact scalar path
     for name in ("pumsb", "mushroom", "kosarak"):
         prep = preps[name]
         lut = torch.from_numpy(prep.fl.rank_lut()).to(dev)
@@ -180,6 +190,7 @@ def main() -> int:
         e = dict(
             shape=f"{name} ranked rows {R}x{L}, K={k}, {pairs} pair updates", max_abs_err=err,
             ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k)),
+            unqueued_ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k), queued=False),
             plain_ms=time_ms(lambda: cooc_ref.cooccur_ref(ranked, wr, n_items=k), reps=3),
             library_ms=time_ms(lambda: X.T @ X),
             library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
@@ -188,46 +199,68 @@ def main() -> int:
         if name == "pumsb":
             entries["cooccur"] = dict(source="src/repro_torch/csrc/cooccur.cu",
                                       replaces="src/repro/kernels/cooccur/kernel.py:23", **e)
+            gen = torch.Generator(device=dev).manual_seed(12)
+            heavy = ranked.clone()
+            rep = torch.arange(0, R, 7, device=dev)
+            heavy[rep, L - 1] = heavy[rep, 0]  # every 7th row repeats its first item
+            ww = torch.where(torch.rand(R, generator=gen, device=dev) < 1 / 16,
+                             torch.randint(0, (1 << 20) + 1, (R,), generator=gen, device=dev),
+                             torch.ones(R, dtype=torch.int64, device=dev)).to(torch.int32)
+            got = K.cooccur_cuda(heavy, ww, n_items=k)
+            want = cooc_ref.cooccur_ref(heavy, ww, n_items=k)
+            assert_equal("cooccur pumsb weighted, repeated items", (got,), (want,))
+            entries["cooccur"]["weighted_repeated_ms"] = time_ms(lambda: K.cooccur_cuda(heavy, ww, n_items=k))
+            log(f"  B4 equal to its plain version on pumsb's rows with every 7th row repeating "
+                f"an item and 1/16 of the rows weighted up to 2^20")
+            del heavy, ww, rep
         else:
             entries["cooccur"][f"at_{name}"] = e
         log(f"  B4 equal to its plain version on {name} (K={k})")
         del X, ranked, nvalid, wr, lut
 
     # B1 and B2 at the level-2 waves of mushroom (W=2048), pumsb and kosarak
-    # (both W=16384)
+    # (both W=16384), through the wave entry the miner calls
     for name in ("mushroom", "pumsb", "kosarak"):
-        a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, n_cand = level2_wave(miner, preps[name], counts[name])
-        B, W = a_pre.shape
-        log(f"wave {name}: {n_cand} candidates -> Cpad {B}, W {W}")
-        got = K.nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)
-        want = nl_ref.nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt)
+        planes, state, idx, n_live = level2_wave(miner, preps[name], counts[name])
+        B, W = idx.shape[1], planes.shape[2]
+        log(f"wave {name}: {n_live} candidates -> Cpad {B}, W {W}")
+        got = K.nlist_wave_cuda(planes, state, idx, n_live)
+        want = nl_ref.nlist_wave_ref(planes, state, idx, n_live)
         err1 = assert_equal(f"nlist_intersect {name}", got, want)
         mc = counts[name]
+        labs = (512, 64, 8, 1)
         for stop in (0, mc // 2, mc, 2 * mc, 1 << 30):
-            for lab in (512, 64):
-                got = K.nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop, la_block=lab)
-                want = nl_ref.nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop, la_block=lab)
+            for lab in labs:
+                kw = dict(early_stop=True, min_count=stop, la_block=lab)
+                got = K.nlist_wave_cuda(planes, state, idx, n_live, **kw)
+                want = nl_ref.nlist_wave_ref(planes, state, idx, n_live, **kw)
                 assert_equal(f"nlist_intersect_es {name} min_count={stop} la_block={lab}", got, want)
-        log(f"  B1 and B2 equal to their plain versions on {name} "
-            f"(B2 at min_count 0, {mc // 2}, {mc}, {2 * mc}, 2^30 x la_block 512, 64)")
-        # bytes the function needs: a_pre, a_post and y_cnt read in full (B2
-        # also a_cnt), y_pre/y_post only where y_cnt != 0, the merged rows
-        # written in full, one support per candidate
-        nz = int((y_cnt != 0).sum())
+        log(f"  B1 and B2 (wave entry) equal to their plain versions on {name} "
+            f"(B2 at min_count 0, {mc // 2}, {mc}, {2 * mc}, 2^30 x la_block {', '.join(map(str, labs))})")
+        # bytes the function needs: for the live candidates a_pre, a_post and
+        # y_cnt read in full (B2 also a_cnt), y_pre/y_post only where y_cnt
+        # != 0; the merged rows written in full, padding rows included; one
+        # support per slot. Dead tiles are not subtracted.
+        live = idx[:, :n_live]
+        nz = int((state[live[0]] != 0).sum())
         ops = nz * (math.ceil(math.log2(W)) + 2)
-        shape = f"{name} level-2 wave: {n_cand} candidates, Cpad {B} x W {W}, {nz} nonzero Y codes"
-        b1, by1 = bound(B * W * 4 * 4 + nz * 8 + B * 4, ops)
-        b2, by2 = bound(B * W * 4 * 5 + nz * 8 + B * 4, ops)
+        shape = (f"{name} level-2 wave: {n_live} candidates, Cpad {B} x W {W}, "
+                 f"{nz} nonzero Y codes, wave entry (no gathers)")
+        b1, by1 = bound(n_live * W * 4 * 3 + B * W * 4 + nz * 8 + B * 4, ops)
+        b2, by2 = bound(n_live * W * 4 * 4 + B * W * 4 + nz * 8 + B * 4, ops)
         e1 = dict(
             shape=shape, max_abs_err=err1,
-            ms=time_ms(lambda: K.nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)),
-            plain_ms=time_ms(lambda: nl_ref.nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt), reps=3),
+            ms=time_ms(lambda: K.nlist_wave_cuda(planes, state, idx, n_live)),
+            unqueued_ms=time_ms(lambda: K.nlist_wave_cuda(planes, state, idx, n_live), queued=False),
+            plain_ms=time_ms(lambda: nl_ref.nlist_wave_ref(planes, state, idx, n_live), reps=3),
             library_ms=None, bound_ms=b1, bound_by=by1,
         )
+        kw = dict(early_stop=True, min_count=mc, la_block=512)
         e2 = dict(
             shape=shape + f", min_count {mc}, la_block 512", max_abs_err=0,
-            ms=time_ms(lambda: K.nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, mc)),
-            plain_ms=time_ms(lambda: nl_ref.nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, mc), reps=3),
+            ms=time_ms(lambda: K.nlist_wave_cuda(planes, state, idx, n_live, **kw)),
+            unqueued_ms=time_ms(lambda: K.nlist_wave_cuda(planes, state, idx, n_live, **kw), queued=False),
+            plain_ms=time_ms(lambda: nl_ref.nlist_wave_ref(planes, state, idx, n_live, **kw), reps=3),
             library_ms=None, bound_ms=b2, bound_by=by2,
         )
         # one entry per kernel: the mushroom wave's numbers at top level, the
@@ -239,7 +272,7 @@ def main() -> int:
                     replaces=f"src/repro/kernels/nlist_intersect/kernel.py:{line}", **e)
             else:
                 entries[kname][f"at_{name}"] = e
-        del a_pre, a_post, a_cnt, y_pre, y_post, y_cnt
+        del planes, state, idx, live
     # phase 4 reports each mine's peak memory: nothing of phase 3 stays alive
     del preps, prep, rows_k, w1, lib_out, got, want
     torch.cuda.synchronize()
@@ -311,10 +344,13 @@ def main() -> int:
         stages = {k: round(v, 4) for k, v in res.stage_times_s.items() if not k.startswith(("planned", "host_"))}
         head = f"profile {name}@{sups[name]} early_stop={es} (warm): wall {wall_ms:.1f}ms"
         if busy > 0:
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
             top = "; ".join(f"{k[:70]} x{n} {ms:.3f}ms" for k, (ms, n) in top)
+            gathers = [(n, ms) for k, (ms, n) in by_name.items() if "index_elementwise" in k]
+            gathers = f"x{sum(n for n, _ in gathers)} {sum(ms for _, ms in gathers):.3f}ms"
             log(f"{head}, device busy {busy:.1f}ms, idle share {1 - busy / wall_ms:.3f}; "
-                f"stages {json.dumps(stages)}; top device ops: {top}")
+                f"stages {json.dumps(stages)}; index_elementwise_kernel (gathers) {gathers}; "
+                f"top device ops: {top}")
         else:
             log(f"{head}, device time not measured (the profiler recorded none)")
 

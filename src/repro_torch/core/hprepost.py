@@ -8,9 +8,9 @@ The Hadoop pipeline maps onto one data shard and one candidate group
   Job 2 reduce (PPC-tree) -> sort-based ``build_ppc_torch``, then the N-list
                              pack into a ``(D=1, K, W, 3)`` buffer
   F2 scan                 -> co-occurrence kernel
-  k>2 mining waves        -> batched N-list intersections: one gather of the
-                             candidates' parent states and N-lists, then the
-                             fused intersect + support kernel
+  k>2 mining waves        -> batched N-list intersections: the fused
+                             intersect + support kernel, reading each
+                             candidate's parent state and N-lists by index
 
 Mining state per candidate: the merged N-list counts aligned with the
 candidate's base-item code slots — ``(C, W)`` buffers, candidate counts
@@ -36,7 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fault import failures
 from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
 from repro_torch.kernels.histogram.ops import item_histogram
-from repro_torch.kernels.nlist_intersect.ops import EXACT_MAX, nlist_intersect
+from repro_torch.kernels.nlist_intersect.ops import EXACT_MAX, nlist_wave
 from repro_torch.mining import tune
 from repro_torch.mining.telemetry import trace
 
@@ -98,7 +98,6 @@ class PreparedDB:
     min_count_floor: int  # loosest threshold this prep can serve
     width: int  # static N-list width W (0 when F1-only)
     packed: Any  # (1, K, W, 3) int32 device N-lists, or None when F1-only
-    singleton_state: Any  # packed[..., 2] — wave-2 bootstrap, or None
     C: np.ndarray  # (K, K) upper-triangular F2 co-occurrence counts
     prep_bytes: int  # footprint: rows + F-list + packed
     rows_flist_bytes: int  # the threshold-independent part of prep_bytes
@@ -159,14 +158,13 @@ class PreparedDB:
             C = np.asarray(payload["C"], np.int64)
             if C.shape != (fl.k, fl.k):
                 raise ValueError(f"snapshot C has shape {C.shape}, expected {(fl.k, fl.k)}")
-            packed = singleton = None
+            packed = None
             if not f1_only and fl.k > 0:
                 ph = np.asarray(payload["packed"], np.int32)
                 want = (n_shards, fl.k, width, 3)
                 if ph.shape != want:
                     raise ValueError(f"snapshot packed has shape {ph.shape}, expected {want}")
                 packed = torch.from_numpy(np.array(ph)).to(miner.device)
-                singleton = packed[:, :, :, 2]
         except (KeyError, TypeError, OverflowError) as e:
             raise ValueError(f"malformed PreparedDB snapshot payload: {e!r}") from e
         return cls(
@@ -176,7 +174,6 @@ class PreparedDB:
             min_count_floor=int(payload["min_count_floor"]),
             width=width,
             packed=packed,
-            singleton_state=singleton,
             C=C,
             prep_bytes=int(payload["prep_bytes"]),
             rows_flist_bytes=int(payload["rows_flist_bytes"]),
@@ -319,7 +316,7 @@ class HPrepostMiner:
         prep_bytes = rows_flist_bytes
         stages["job2_ppc_pack"] = 0.0
         stages["f2_scan"] = 0.0
-        packed = singleton = None
+        packed = None
         C = np.zeros((K, K), np.int64)
         W = 0
         if K > 0 and need_waves:
@@ -343,12 +340,10 @@ class HPrepostMiner:
             C = np.triu(C, 1)
             stages["f2_scan"] = time.perf_counter() - t0
             prep_bytes += int(packed.numel() * 4)
-            # level-2 bootstrap: parents are singletons, prev_state = node counts
-            singleton = packed[:, :, :, 2]
 
         return PreparedDB(
             fl=fl, n_items=n_items, n_rows=R0, min_count_floor=int(min_count_floor),
-            width=W, packed=packed, singleton_state=singleton, C=C,
+            width=W, packed=packed, C=C,
             prep_bytes=prep_bytes, rows_flist_bytes=rows_flist_bytes,
             stage_times=stages, f1_only=not need_waves, n_shards=self.D,
         )
@@ -358,8 +353,10 @@ class HPrepostMiner:
         """Host slot assignment for one wave: candidate i -> device slot i,
         padded to a power-of-two multiple of ``candidate_unit``. (With one
         shard the reference's locality bucketing assigns the same slots.)
+        Slots ``>= len(ranks)`` are padding: the wave kernel reads nothing
+        for them and writes zeros.
 
-        -> (parent_arr, base_idx, q_idx, slot_of, Cpad)."""
+        -> (idx (3, Cpad) int64 rows (parent, base, extension), slot_of, Cpad)."""
         unit = self.cfg.candidate_unit
         Cn = len(ranks)
         Cpad = unit * _pow2((Cn + unit - 1) // unit)
@@ -370,16 +367,13 @@ class HPrepostMiner:
         idx[2, :Cn] = qarr
         return idx, slot_of, Cpad
 
-    def _wave(self, planes, prev_state, idx, stop_count: int):
-        """One wave on the device: gather parent states and the candidates'
-        N-lists, then the fused intersect + support kernel."""
-        idx_t = _to_device(idx, self.device)
-        state = prev_state[idx_t[0]]
-        y = planes[:2, idx_t[1]]  # (2, Cpad, W): base item pre, post
-        a = planes[:, idx_t[2]]  # (3, Cpad, W): extension item pre, post, count
+    def _wave(self, planes, prev_state, idx, n_live: int, stop_count: int):
+        """One wave on the device: the fused intersect + support kernel reads
+        each live candidate's parent state and N-lists in place by ``idx``
+        — no gathered copies."""
         plan = self.plan
-        return nlist_intersect(
-            a[0], a[1], y[0], y[1], state, a_cnt=a[2], backend=plan.backend,
+        return nlist_wave(
+            planes, prev_state, _to_device(idx, self.device), n_live, backend=plan.backend,
             la_block=plan.la_block, early_stop=plan.early_stop, min_count=stop_count,
         )
 
@@ -502,10 +496,10 @@ class HPrepostMiner:
         # prefix mask {q2 : q2 < r} — both 8 ranks per byte
         pair_packed = np.packbits(pair_ok, axis=1)
         prefix_packed = np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
-        # planar (3, K, W) copy of the N-lists: each gathered plane is a
-        # contiguous (C, W) kernel operand
+        # planar (3, K, W) copy of the N-lists: the wave kernel reads each
+        # candidate's (pre, post, count) rows as contiguous W-wide rows
         planes = prepared.packed[0].permute(2, 0, 1).contiguous()
-        prev_state = prepared.singleton_state[0]
+        prev_state = planes[2]  # level-2 parents: singleton counts, packed[0, ..., 2]
         qs, ps = np.nonzero(C >= min_count)
         ranks = np.stack([qs, ps], axis=1).astype(np.int32)  # (C, 2) ascending
         parents = ps.astype(np.int64)  # level-2 parents: singleton rank slots
@@ -524,7 +518,7 @@ class HPrepostMiner:
                 stages["planned_candidates"] += float(len(ranks))
                 failures.fire("mine.wave")
                 with trace.span("mine.wave", k=level, candidates=len(ranks)):
-                    new_state, sups = self._wave(planes, prev_state, idx, stop_count)
+                    new_state, sups = self._wave(planes, prev_state, idx, len(ranks), stop_count)
                     read = _HostRead(sups)
                 self.stage_counters["waves"] += 1
                 dispatched = (ranks, parents, slot_of, read)

@@ -1,4 +1,5 @@
-// B1 and B2: the batched N-list intersection fused with its support.
+// B1 and B2: the batched N-list intersection fused with its support, and the
+// wave entry that gathers its operands by index.
 //
 //   out[b, i] = sum_j y_cnt[b, j] * [a_pre[b, i] < y_pre[b, j]] * [a_post[b, i] > y_post[b, j]]
 //   sup[b]    = sum_i out[b, i]
@@ -9,34 +10,75 @@
 // of la_block slots, keeps a candidate alive only while
 // support-so-far + A-count mass of the remaining tiles >= min_count, and
 // zeroes the tiles of dead candidates (ref.nlist_intersect_masked_ref).
+// Both are one template here (kMasked); B1 is B2 without the liveness test.
 //
 // The TPU kernels build the dense (La x Ly) subsume mask and contract it on
-// the MXU in fp32: O(B*W^2) work, exact below 2^24 — a workaround for the
-// TPU's slow gathers. Here the gather form is the design: within one item's
-// N-list the PPC nodes form an antichain, so a Y code has at most one
-// ancestor in A, and it can only be A[searchsorted(a_pre, y_pre) - 1]. One
-// binary search, one post test and one int32 atomicAdd per Y code: O(B*W*log W),
-// exact and order-independent, so bit-identical to the plain version.
+// the MXU in fp32: O(B*W^2) work, exact below 2^24, and the caller gathers
+// every operand row first because a BlockSpec cannot index by a table.
+// Here the gather form is the design: within one item's N-list the PPC
+// nodes form an antichain, so a Y code has at most one ancestor in A, and it
+// can only be A[searchsorted(a_pre, y_pre) - 1]. int32 atomicAdd of the
+// code's count onto that slot is exact and order-independent, so the result
+// is bit-identical to the plain version.
 //
-// Bound on Hopper: bytes. Each candidate reads 5 (B2: 6) int32 rows of W and
-// writes one; the log W probes hit shared memory. Layout: one block per
-// candidate; its A pre/post rows and merged row live in shared memory
-// (12*W bytes: 192 KB at W = 16384, inside the 227 KB opt-in). Wider lists
-// run the same code on global memory. B2 computes the exact merged row,
-// then one warp walks the tiles in order and the block zeroes everything
-// from the first dead tile on; it saves no work yet over B1.
+// Bound on Hopper: bytes. A candidate reads its A pre/post rows (B2: and
+// its A counts), the Y counts, and Y pre/post only where the count is
+// nonzero, and writes one merged row; the log-depth probes hit shared memory.
+//
+// Design:
+// - Gather fused: a block reads its candidate's rows in place, by the row
+//   indices it is given (a_idx, y_idx, c_idx; null = row b). The miner's
+//   wave passes the (3, K, W) N-list planes, the previous wave's states and
+//   the wave's (parent, base, extension) index rows, and copies nothing.
+//   Blocks b >= n_live (the wave's padding) write a zero row and support.
+// - Tile-ordered merge: A and Y are both pre-ascending, so the Y codes whose
+//   ancestor lies in A chunk [t0, t1) are one contiguous run, those with
+//   a_pre[t0] < y_pre <= a_pre[t1]. The block first bounds both lists'
+//   valid lengths with one round of NT strided probes (padding is a
+//   suffix), then walks A's valid part in chunks of SPT*NT slots, keeping
+//   only the chunk's pre/post/counts/merged row in shared memory (16 bytes a
+//   slot), and streams Y from where the last chunk stopped: 4*NT codes a
+//   step, counts first and pre/post only where the count is nonzero, the
+//   run ending at the first nonzero-count code past a_pre[t1]. Each chunk's
+//   merged slots are written once; the rest of the row is written as zeros.
+// - Early stop that stops: with T = total A-count mass and
+//   D(p) = sum_{i<p} (merged[i] - a_cnt[i]), the tile starting at p is
+//   alive iff support-so-far + suffix mass >= min_count, i.e.
+//   D(p) >= min_count - T. A block scan of D over the chunk checks every
+//   la_block boundary in it (la_block may be 1); from the first dead one the
+//   block writes zeros and reads nothing more, and the support stays the
+//   sum of the slots before it — exactly the plain version's rule,
+//   including a dead candidate's frozen partial support. A boundary that
+//   opens a chunk is checked before the chunk is read.
+// - Filling the card: one block per candidate, whose chain of chunks is
+//   sequential (the liveness rule is). With many candidates (n_live >= 4 per
+//   SM) blocks of 256 threads take 2,048-slot chunks (32 KB), so mushroom's
+//   W = 2048 rows are one chunk and 7 blocks share an SM; with fewer
+//   (pumsb's level-2 wave has 1, kosarak's 215 against 132 SMs) blocks of
+//   1,024 threads take 4,096-slot chunks, so each chain is at most 4 chunks
+//   at W = 16384 and the SMs still hold 32 warps each. No W limit: shared
+//   memory holds a chunk, never a row.
+// Inputs must keep the N-list contract: both lists pre-ascending, padding
+// pre = INT32_MAX, post = -1, count 0.
 #include <cuda_runtime.h>
+#include <limits.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCodesPerThread = 4;  // Y codes a thread takes per stream step
 
 __device__ __forceinline__ long long warp_sum(long long v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // block-wide sum; every thread gets the total
+template <int NT>
 __device__ long long block_sum(long long v, long long* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
@@ -44,136 +86,243 @@ __device__ long long block_sum(long long v, long long* scratch) {
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
   long long t = 0;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += scratch[i];
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) t += scratch[i];
   return t;
 }
 
-template <bool kMasked>
-__global__ void intersect_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
-                                 const int* __restrict__ a_cnt, const int* __restrict__ y_pre,
-                                 const int* __restrict__ y_post, const int* __restrict__ y_cnt,
-                                 int La, int Ly, int la_block, long long min_count, int use_smem,
-                                 int* __restrict__ out, int* __restrict__ sup) {
-  extern __shared__ int smem[];
-  __shared__ long long scratch[32];
-  __shared__ int s_dead;
-  const long long b = blockIdx.x;
-  const int* ap = a_pre + b * La;
-  const int* aq = a_post + b * La;
-  const int* yp = y_pre + b * Ly;
-  const int* yq = y_post + b * Ly;
-  const int* yc = y_cnt + b * Ly;
-  int* o = out + b * La;
-
-  const int* sp;
-  const int* sq;
-  int* so;
-  if (use_smem) {
-    int* s_pre = smem;
-    int* s_post = smem + La;
-    so = smem + 2 * La;
-    for (int i = threadIdx.x; i < La; i += blockDim.x) {
-      s_pre[i] = ap[i];
-      s_post[i] = aq[i];
-      so[i] = 0;
-    }
-    sp = s_pre;
-    sq = s_post;
-  } else {
-    for (int i = threadIdx.x; i < La; i += blockDim.x) o[i] = 0;
-    sp = ap;
-    sq = aq;
-    so = o;
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < Ly; j += blockDim.x) {
-    const int c = yc[j];
-    if (c == 0) continue;  // padding and zero-count codes add nothing
-    const int v = yp[j];
-    int lo = 0, hi = La;  // lo = #{i : a_pre[i] < v}
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (sp[mid] < v) lo = mid + 1; else hi = mid;
-    }
-    const int idx = lo - 1;
-    if (idx >= 0 && sq[idx] > yq[j]) atomicAdd(&so[idx], c);
-  }
-  __syncthreads();
-
-  int dead = La;  // first slot of the first dead tile (La: none)
-  if (kMasked) {
-    const int* ac = a_cnt + b * La;
-    long long mass = 0;
-    for (int i = threadIdx.x; i < La; i += blockDim.x) mass += ac[i];
-    const long long total = block_sum(mass, scratch);
-    if (threadIdx.x < 32) {
-      long long s = 0, prefix = 0;
-      int d = La;
-      for (int t0 = 0; t0 < La; t0 += la_block) {
-        if (s + (total - prefix) < min_count) { d = t0; break; }
-        const int end = t0 + la_block < La ? t0 + la_block : La;
-        long long ts = 0, tm = 0;
-        for (int i = t0 + (int)threadIdx.x; i < end; i += 32) { ts += so[i]; tm += ac[i]; }
-        s += warp_sum(ts);
-        prefix += warp_sum(tm);
-      }
-      if (threadIdx.x == 0) s_dead = d;
-    }
-    __syncthreads();
-    dead = s_dead;
-  }
-
-  long long part = 0;
-  for (int i = threadIdx.x; i < La; i += blockDim.x) {
-    const int m = i < dead ? so[i] : 0;
-    if (use_smem || i >= dead) o[i] = m;
-    part += m;
-  }
-  const long long s = block_sum(part, scratch);
-  if (threadIdx.x == 0) sup[b] = (int)s;
+// An upper bound of a list's valid length, within one probe stride: padding
+// (pre = INT32_MAX) is a suffix, so every slot from the first padded probe
+// on is padding. One round of NT independent loads; the caller reduces.
+template <int NT>
+__device__ __forceinline__ int first_padded_probe(const int* pre, int n) {
+  const int stride = (n + NT - 1) / NT;
+  const int p = threadIdx.x * stride;
+  return (p < n && pre[p] == INT_MAX) ? p : n;
 }
 
-int launch(bool masked, const int* a_pre, const int* a_post, const int* a_cnt, const int* y_pre,
-           const int* y_post, const int* y_cnt, long long B, int La, int Ly, int la_block,
-           long long min_count, int* out, int* sup, void* stream) {
-  if (B == 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t need = (size_t)3 * La * sizeof(int);
-  // static shared memory (scratch, s_dead) comes out of the same budget
-  const int use_smem = need + 512 <= (size_t)optin ? 1 : 0;
-  const size_t smem = use_smem ? need : 0;
-  auto kernel = masked ? intersect_kernel<true> : intersect_kernel<false>;
-  if (smem > 48 * 1024) {
+// NT threads; a chunk of SPT*NT A slots.
+template <bool kMasked, int NT, int SPT>
+__global__ void __launch_bounds__(NT)
+wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
+            const int* __restrict__ a_cnt, const long long* __restrict__ a_idx,
+            const int* __restrict__ y_pre, const int* __restrict__ y_post,
+            const long long* __restrict__ y_idx, const int* __restrict__ y_cnt,
+            const long long* __restrict__ c_idx, int La, int Ly, long long n_live,
+            int la_block, long long min_count, int* __restrict__ out, int* __restrict__ sup) {
+  constexpr int CH = SPT * NT;
+  constexpr int NW = NT / 32;
+  constexpr int YS = kCodesPerThread * NT;  // Y codes per stream step
+  extern __shared__ int smem[];
+  int* s_pre = smem;
+  int* s_post = smem + CH;
+  int* s_m = smem + 2 * CH;
+  int* s_cnt = smem + 3 * CH;  // kMasked only
+  __shared__ long long scratch[NW];
+  __shared__ long long s_scan[NW];
+  __shared__ int s_first[2][NW];
+  __shared__ int s_deadw[NW];
+  __shared__ int s_len[2][NW];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long b = blockIdx.x;
+  int* o = out + b * La;
+  if (b >= n_live) {
+    for (int i = tid; i < La; i += NT) o[i] = 0;
+    if (tid == 0) sup[b] = 0;
+    return;
+  }
+  const long long ra = a_idx ? a_idx[b] : b;
+  const long long ry = y_idx ? y_idx[b] : b;
+  const long long rc = c_idx ? c_idx[b] : b;
+  const int* ap = a_pre + ra * La;
+  const int* aq = a_post + ra * La;
+  const int* yp = y_pre + ry * Ly;
+  const int* yq = y_post + ry * Ly;
+  const int* yc = y_cnt + rc * Ly;
+
+  // valid lengths (upper bounds): A's slots past na and Y's codes past ny
+  // are padding, which merges nothing
+  {
+    const int pa = warp_min(first_padded_probe<NT>(ap, La));
+    const int py = warp_min(first_padded_probe<NT>(yp, Ly));
+    if (lane == 0) { s_len[0][warp] = pa; s_len[1][warp] = py; }
+  }
+  __syncthreads();
+  int na = La, ny = Ly;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) { na = min(na, s_len[0][w]); ny = min(ny, s_len[1][w]); }
+
+  long long theta = 0;  // the tile at p is dead iff D(p) < theta
+  const int* ac = nullptr;
+  if (kMasked) {
+    ac = a_cnt + ra * La;
+    long long m = 0;
+    for (int i = tid; i < na; i += NT) m += ac[i];
+    theta = min_count - block_sum<NT>(m, scratch);
+  }
+
+  long long D = 0;     // sum over the slots before t0 of (merged - cnt)
+  long long part = 0;  // this thread's share of the support
+  int j = 0;           // Y stream position
+  int it = 0;          // Y stream steps, for the double-buffered s_first
+  int t0 = 0;
+  for (; t0 < na; t0 += CH) {
+    if (kMasked && t0 % la_block == 0 && D < theta) break;  // dead before reading the chunk
+    const int n = min(CH, na - t0);
+    __syncthreads();  // the previous chunk's tiles have been written out
+    for (int i = tid; i < n; i += NT) {
+      s_pre[i] = ap[t0 + i];
+      s_post[i] = aq[t0 + i];
+      s_m[i] = 0;
+      if (kMasked) s_cnt[i] = ac[t0 + i];
+    }
+    const int hi = t0 + n < na ? ap[t0 + n] : INT_MAX;
+    __syncthreads();
+
+    // merge the chunk's run of Y codes: it ends at the first nonzero-count
+    // code past hi
+    while (j < ny) {
+      int c[kCodesPerThread], v[kCodesPerThread];
+#pragma unroll
+      for (int k = 0; k < kCodesPerThread; ++k) {
+        const int jj = j + k * NT + tid;
+        c[k] = jj < ny ? yc[jj] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kCodesPerThread; ++k) v[k] = c[k] ? yp[j + k * NT + tid] : 0;
+      int beyond = YS;
+#pragma unroll
+      for (int k = 0; k < kCodesPerThread; ++k) {
+        if (!c[k]) continue;
+        if (v[k] > hi) {
+          beyond = min(beyond, k * NT + tid);
+          continue;
+        }
+        int lo = 0, h = n;  // lo = #{i : a_pre[t0 + i] < v}
+        while (lo < h) {
+          const int mid = (lo + h) >> 1;
+          if (s_pre[mid] < v[k]) lo = mid + 1; else h = mid;
+        }
+        if (lo > 0 && s_post[lo - 1] > yq[j + k * NT + tid]) atomicAdd(&s_m[lo - 1], c[k]);
+      }
+      beyond = warp_min(beyond);
+      int* sf = s_first[it & 1];
+      if (lane == 0) sf[warp] = beyond;
+      ++it;
+      __syncthreads();
+      int first = YS;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) first = min(first, sf[w]);
+      j += first;
+      if (first < YS) break;
+    }
+
+    // write the chunk; with early stop, up to its first dead tile
+    int dead = INT_MAX;  // first dead slot in this chunk, if any
+    if (kMasked) {
+      const int s0 = tid * SPT;
+      long long loc[SPT];
+      long long ts = 0;
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        const int i = s0 + k;
+        loc[k] = i < n ? (long long)s_m[i] - s_cnt[i] : 0;
+        ts += loc[k];
+      }
+      long long x = ts;  // inclusive warp scan
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      if (lane == 31) s_scan[warp] = x;
+      __syncthreads();
+      long long before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const long long s = s_scan[w];
+        if (w < warp) before += s;
+        total += s;
+      }
+      long long d = D + before + x - ts;  // D at slot t0 + s0
+      int mine = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        const int p = t0 + s0 + k;
+        if (s0 + k < n && p % la_block == 0 && d < theta && mine == INT_MAX) mine = p;
+        d += loc[k];
+      }
+      mine = warp_min(mine);
+      if (lane == 0) s_deadw[warp] = mine;
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < NW; ++w) dead = min(dead, s_deadw[w]);
+      D += total;
+    }
+    for (int i = tid; i < n; i += NT) {
+      const int m = t0 + i < dead ? s_m[i] : 0;
+      o[t0 + i] = m;
+      part += m;
+    }
+    if (dead != INT_MAX) { t0 += n; break; }
+  }
+  for (int i = min(t0, na) + tid; i < La; i += NT) o[i] = 0;  // dead tiles and padding
+  const long long s = block_sum<NT>(part, scratch);
+  if (tid == 0) sup[b] = (int)s;
+}
+
+template <bool kMasked, int NT, int SPT>
+int launch_t(const int* a_pre, const int* a_post, const int* a_cnt, const long long* a_idx,
+             const int* y_pre, const int* y_post, const long long* y_idx, const int* y_cnt,
+             const long long* c_idx, long long B, int La, int Ly, long long n_live,
+             int la_block, long long min_count, int* out, int* sup, cudaStream_t s) {
+  const size_t smem = (size_t)(kMasked ? 4 : 3) * SPT * NT * sizeof(int);
+  auto kernel = wave_kernel<kMasked, NT, SPT>;
+  // dynamic plus static shared memory above 48 KB needs the opt-in
+  static bool opted_in = false;
+  if (!opted_in && smem >= 32 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    opted_in = true;
   }
-  kernel<<<(unsigned)B, kThreads, smem, s>>>(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, La, Ly,
-                                             la_block, min_count, use_smem, out, sup);
+  kernel<<<(unsigned)B, NT, smem, s>>>(a_pre, a_post, a_cnt, a_idx, y_pre, y_post, y_idx, y_cnt,
+                                       c_idx, La, Ly, n_live, la_block, min_count, out, sup);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B1. a_pre, a_post (B, La); y_pre, y_post, y_cnt (B, Ly), all int32 and
-// pre-ascending per row -> out (B, La) int32, sup (B,) int32.
-extern "C" int nlist_intersect_launch(const int* a_pre, const int* a_post, const int* y_pre,
-                                      const int* y_post, const int* y_cnt, long long B, int La,
-                                      int Ly, int* out, int* sup, void* stream) {
-  return launch(false, a_pre, a_post, nullptr, y_pre, y_post, y_cnt, B, La, Ly, La > 0 ? La : 1, 0,
-                out, sup, stream);
-}
-
-// B2. B1's inputs plus a_cnt (B, La) int32, the liveness tile la_block and
-// the threshold min_count (<= 0: every candidate stays alive, exactly B1).
-extern "C" int nlist_intersect_es_launch(const int* a_pre, const int* a_post, const int* a_cnt,
-                                         const int* y_pre, const int* y_post, const int* y_cnt,
-                                         long long B, int La, int Ly, int la_block,
-                                         long long min_count, int* out, int* sup, void* stream) {
-  return launch(true, a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, B, La, Ly, la_block, min_count,
-                out, sup, stream);
+// The one launcher of B1 (masked = 0) and B2 (masked = 1). Row b of the
+// launch reads A row a_idx[b] of a_pre/a_post/a_cnt (La wide), Y row
+// y_idx[b] of y_pre/y_post and row c_idx[b] of y_cnt (Ly wide); a null
+// index array means row b. Writes out (B, La) int32 and sup (B,) int32;
+// rows b >= n_live are zero. B2 takes a_cnt, la_block >= 1 and min_count.
+extern "C" int nlist_wave_launch(const int* a_pre, const int* a_post, const int* a_cnt,
+                                 const long long* a_idx, const int* y_pre, const int* y_post,
+                                 const long long* y_idx, const int* y_cnt,
+                                 const long long* c_idx, long long B, int La, int Ly,
+                                 long long n_live, int masked, int la_block, long long min_count,
+                                 int* out, int* sup, void* stream) {
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static int sms = 0;  // one card: asked once
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const bool many = n_live >= 4LL * sms;
+  if (la_block < 1) la_block = 1;
+#define REPRO_WAVE(M, NT, SPT)                                                                 \
+  return launch_t<M, NT, SPT>(a_pre, a_post, a_cnt, a_idx, y_pre, y_post, y_idx, y_cnt, c_idx, \
+                              B, La, Ly, n_live, la_block, min_count, out, sup, s)
+  if (masked) {
+    if (many) REPRO_WAVE(true, 256, 8);
+    REPRO_WAVE(true, 1024, 4);
+  }
+  if (many) REPRO_WAVE(false, 256, 8);
+  REPRO_WAVE(false, 1024, 4);
+#undef REPRO_WAVE
 }

@@ -1,7 +1,8 @@
 """Public op: cooccurrence_matrix — the F2 scan, with the backend checked
 against the rows' device through the registry in
-``repro_torch.mining.tune``: the CUDA kernel for CUDA rows (int32
-atomics, no 2^24 chunking needed), its plain pair scatter for CPU rows."""
+``repro_torch.mining.tune``: the CUDA kernel for CUDA rows (the one-hot
+product on the int8 tensor cores, exact in int32, no 2^24 chunking
+needed), its plain pair scatter for CPU rows."""
 from __future__ import annotations
 
 import torch

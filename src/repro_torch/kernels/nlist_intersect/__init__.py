@@ -1,3 +1,3 @@
-from repro_torch.kernels.nlist_intersect.ops import nlist_intersect
+from repro_torch.kernels.nlist_intersect.ops import nlist_intersect, nlist_wave
 
-__all__ = ["nlist_intersect"]
+__all__ = ["nlist_intersect", "nlist_wave"]

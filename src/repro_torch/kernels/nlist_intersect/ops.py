@@ -1,6 +1,9 @@
-"""Public op: nlist_intersect — the wave's fused intersect + support, with
-the backend checked against the tensors' device through the registry in
-``repro_torch.mining.tune``. Both paths return ``(merged, supports)``:
+"""Public ops: ``nlist_wave`` — one mining wave, its operands read by index
+from the N-list planes and the previous states (the miner's entry) — and
+``nlist_intersect`` — the same fused intersect + support on rows the caller
+has gathered (the JAX package's signature). The backend is checked against
+the tensors' device through the registry in ``repro_torch.mining.tune``.
+Both return ``(merged, supports)``:
 merged counts aligned with A's code slots plus their per-candidate row
 sums, so the waves never re-read the merged state just to reduce it.
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels.nlist_intersect.kernel import (
     nlist_intersect_cuda,
     nlist_intersect_es_cuda,
+    nlist_wave_cuda,
 )
 
 # the port kernels' int32 accumulator: a possible count must stay below this
@@ -50,3 +54,25 @@ def nlist_intersect(
         return nlist_intersect_es_cuda(
             a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_count, la_block=la_block)
     return nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt)
+
+
+def nlist_wave(
+    planes: torch.Tensor,
+    prev_state: torch.Tensor,
+    idx: torch.Tensor,
+    n_live: int,
+    *,
+    backend: str = "auto",
+    la_block: int = 512,
+    early_stop: bool = False,
+    min_count: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One wave: ``planes`` (3, K, W), ``prev_state`` (Cprev, W), ``idx``
+    (3, Cpad) int64 rows (parent, base, extension) -> ``(new_state (Cpad, W),
+    supports (Cpad,))``; rows ``>= n_live`` are zero. See
+    ``kernel.nlist_wave_cuda``."""
+    from repro_torch.mining.tune import check_backend, resolve_backend
+
+    check_backend(resolve_backend(backend, planes.device.type), planes)
+    return nlist_wave_cuda(planes, prev_state, idx, n_live, early_stop=early_stop,
+                           min_count=min_count, la_block=la_block)

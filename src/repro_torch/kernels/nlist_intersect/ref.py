@@ -44,3 +44,22 @@ def nlist_intersect_masked_ref(
     keep = (~dead).repeat_interleave(lab, dim=1)[:, :La]
     merged = exact * keep
     return merged.to(torch.int32), merged.sum(dim=1).to(torch.int32)
+
+
+def nlist_wave_ref(planes, prev_state, idx, n_live, *, early_stop=False, min_count=0,
+                   la_block=512):
+    """The wave entry's contract: gather each candidate's operands —
+    A = ``planes[:, idx[2]]``, Y pre/post = ``planes[:2, idx[1]]``, Y counts
+    = ``prev_state[idx[0]]`` — then B2 (``early_stop``) or B1 on them; rows
+    ``>= n_live`` are zero. -> ``(new_state (Cpad, W), sup (Cpad,))`` int32."""
+    a = planes[:, idx[2]]
+    y = planes[:2, idx[1]]
+    state = prev_state[idx[0]]
+    if early_stop:
+        new, sup = nlist_intersect_masked_ref(a[0], a[1], a[2], y[0], y[1], state, min_count,
+                                              la_block=la_block)
+    else:
+        new, sup = nlist_intersect_fused_ref(a[0], a[1], y[0], y[1], state)
+    new[n_live:] = 0
+    sup[n_live:] = 0
+    return new, sup

@@ -18,10 +18,15 @@ from repro_torch.kernels.cooccur.kernel import cooccur_cuda
 from repro_torch.kernels.cooccur.ref import cooccur_ref
 from repro_torch.kernels.histogram.kernel import histogram_cuda
 from repro_torch.kernels.histogram.ref import histogram_ref
-from repro_torch.kernels.nlist_intersect.kernel import nlist_intersect_cuda, nlist_intersect_es_cuda
+from repro_torch.kernels.nlist_intersect.kernel import (
+    nlist_intersect_cuda,
+    nlist_intersect_es_cuda,
+    nlist_wave_cuda,
+)
 from repro_torch.kernels.nlist_intersect.ref import (
     nlist_intersect_fused_ref,
     nlist_intersect_masked_ref,
+    nlist_wave_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -73,13 +78,35 @@ def test_histogram_kernel(cuda, n_bins):
     assert torch.equal(got, histogram_ref(rows, w, n_bins=n_bins))
 
 
-@pytest.mark.parametrize("K", [1, 60, 300])
-def test_cooccur_kernel(cuda, K):
+def _cooccur_rows(rng, R, L, K, mode):
+    """unique: w = 1 and distinct ranks per row (the main path: all on the
+    tensor cores); mixed: mostly w = 1 with repeats, zeros and a few large
+    weights (both paths in one tile); weighted: weights up to 2^20, repeats."""
+    if mode == "unique":
+        rows = np.stack([rng.permutation(max(K, L))[:L] for _ in range(R)])
+        rows = np.where(rows < K, rows, -1)
+        rows[rng.random(rows.shape) < 0.3] = -1
+        return rows.astype(np.int32), np.ones(R, np.int32)
+    rows = rng.integers(-1, K, size=(R, L)).astype(np.int32)
+    if mode == "mixed":
+        w = rng.choice(np.array([0, 1, 1, 1, 1, 1, 1, 5, 1 << 20]), size=R)
+    else:
+        w = rng.integers(0, (1 << 20) + 1, size=R)
+    return rows, w.astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["unique", "mixed", "weighted"])
+@pytest.mark.parametrize("K", [1, 60, 127, 300, 1000])
+def test_cooccur_kernel(cuda, K, mode):
+    """K not a multiple of the 64-item tile: a transposed fragment or a lost
+    mirror shows off the diagonal tile."""
     rng = np.random.default_rng(K)
-    rows = T(rng.integers(-1, K, size=(2000, 17)).astype(np.int32), cuda)
-    w = T(rng.integers(0, 4, size=2000).astype(np.int32), cuda)
+    rows, w = _cooccur_rows(rng, 2000, 17, K, mode)
+    rows, w = T(rows, cuda), T(w, cuda)
+    before = cooccur_cuda.launches
     got = cooccur_cuda(rows, w, n_items=K)
     torch.cuda.synchronize()
+    assert cooccur_cuda.launches == before + 1
     assert torch.equal(got, cooccur_ref(rows, w, n_items=K))
 
 
@@ -98,6 +125,58 @@ def test_nlist_kernels(cuda, B, La, Ly):
             want = nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, stop,
                                               la_block=lab)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def wave_db():
+    rows, n_items = load("kosarak", scale=0.25)
+    return rows, n_items, int(np.ceil(0.01 * len(rows)))
+
+
+@pytest.mark.parametrize("n_cand", ["few", "many"])
+@pytest.mark.parametrize("W", [2048, 16384, 20000])
+def test_nlist_wave_kernel(cuda, wave_db, W, n_cand):
+    """The gather-fused wave at the miner's widths, against its plain
+    version: a level-2 wave on singleton states, then a wave on its output
+    (sparser counts), with padding slots (n_live < Cpad). "few" candidates
+    take 1,024-thread blocks, "many" (>= 4 per SM) 256-thread ones."""
+    rows, n_items, mc = wave_db
+    miner = HPrepostMiner(cuda, HPrepostConfig(nlist_width=W))
+    prep = miner.prepare(rows, n_items, mc)
+    planes = prep.packed[0].permute(2, 0, 1).contiguous()
+    qs, ps = np.nonzero(prep.C >= mc)
+    if n_cand == "few":
+        qs, ps = qs[:100], ps[:100]
+    else:
+        reps = -(-600 // len(qs))
+        qs, ps = np.tile(qs, reps), np.tile(ps, reps)
+    ranks = np.stack([qs, ps], axis=1).astype(np.int32)
+    idx, _, Cpad = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
+    n_live = len(ranks)
+    assert n_live < Cpad
+    idx = T(idx, cuda)
+    prev = planes[2]  # the singleton states, as the miner's level-2 wave reads them
+    for level in (2, 3):
+        if level == 3:
+            # tree-valid level 3: parent slot s = (q, p) extended by q2 < q,
+            # base q (the parent's state lies on q's slots); truncated or
+            # tiled to the same n_live
+            s3, q2 = np.nonzero(np.arange(prep.fl.k)[None, :] < qs[:, None])
+            s3, q2 = np.resize(s3, n_live), np.resize(q2, n_live)
+            idx = T(np.stack([s3, qs[s3], q2]).astype(np.int64), cuda)
+            idx = torch.cat([idx, torch.zeros((3, Cpad - n_live), dtype=torch.int64,
+                                              device=cuda)], dim=1)
+        for es, stops in ((False, (0,)), (True, (0, mc // 2, mc, 2 * mc, 1 << 30))):
+            for stop in stops:
+                for lab in ((512,) if not es else (512, 64, 8, 1)):
+                    got = nlist_wave_cuda(planes, prev, idx, n_live, early_stop=es,
+                                          min_count=stop, la_block=lab)
+                    want = nlist_wave_ref(planes, prev, idx, n_live, early_stop=es,
+                                          min_count=stop, la_block=lab)
+                    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
+                        level, es, stop, lab)
+        prev = nlist_wave_cuda(planes, prev, idx, n_live)[0]
     torch.cuda.synchronize()
 
 

@@ -160,3 +160,34 @@ def test_tune_and_cuda_backend_raise_on_cpu():
         HPrepostMiner("cpu", HPrepostConfig(tune=True))
     with pytest.raises(ValueError, match="not available"):
         HPrepostMiner("cpu", HPrepostConfig(backend="cuda"))
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_wave_reads_planes_in_place(monkeypatch, early_stop):
+    """Each wave hands the kernel the whole (3, K, W) planes and the
+    previous wave's state with its index rows — no gathered copies — and
+    its padding rows come back zero; the mine stays exact."""
+    from repro_torch.core import hprepost
+
+    rows, n_items = load("mushroom", scale=0.03)
+    miner = HPrepostMiner("cpu", HPrepostConfig(early_stop=early_stop))
+    calls = []
+    real = hprepost.nlist_wave
+
+    def spy(planes, prev_state, idx, n_live, **kw):
+        out = real(planes, prev_state, idx, n_live, **kw)
+        calls.append((planes, prev_state, idx, n_live, kw, out))
+        return out
+
+    monkeypatch.setattr(hprepost, "nlist_wave", spy)
+    res = miner.mine(rows, n_items, 45)
+    assert res.itemsets == mine_prepost(rows, n_items, 45).itemsets
+    assert len(calls) == miner.stage_counters["waves"] > 2
+    planes = calls[0][0]
+    assert planes.shape[0] == 3 and calls[0][1].data_ptr() == planes[2].data_ptr()
+    for i, (p, prev, idx, n_live, kw, (new, sup)) in enumerate(calls):
+        assert p is planes and idx.dtype == torch.int64 and idx.shape == (3, new.shape[0])
+        assert kw["early_stop"] is early_stop and 0 < n_live <= idx.shape[1]
+        assert not new[n_live:].any() and not sup[n_live:].any()
+        if i:
+            assert prev is calls[i - 1][5][0]

@@ -16,13 +16,18 @@ from repro.kernels.histogram.kernel import histogram_pallas
 from repro.kernels.histogram.ops import item_histogram as jax_item_histogram
 from repro.kernels.nlist_intersect.kernel import nlist_intersect_pallas
 from repro.kernels.nlist_intersect.ref import nlist_intersect_masked_ref as jax_masked_ref
+from repro.kernels.nlist_intersect.ref import nlist_intersect_ref as jax_exact_ref
 from repro_torch.kernels.cooccur.kernel import cooccur_cuda
 from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
 from repro_torch.kernels.cooccur.ref import cooccur_ref
 from repro_torch.kernels.histogram.kernel import histogram_cuda
 from repro_torch.kernels.histogram.ops import item_histogram
-from repro_torch.kernels.nlist_intersect.kernel import nlist_intersect_cuda, nlist_intersect_es_cuda
-from repro_torch.kernels.nlist_intersect.ops import nlist_intersect
+from repro_torch.kernels.nlist_intersect.kernel import (
+    nlist_intersect_cuda,
+    nlist_intersect_es_cuda,
+    nlist_wave_cuda,
+)
+from repro_torch.kernels.nlist_intersect.ops import nlist_intersect, nlist_wave
 from repro_torch.kernels.nlist_intersect.ref import (
     nlist_intersect_fused_ref,
     nlist_intersect_masked_ref,
@@ -191,3 +196,78 @@ def test_ops_early_stop_dispatch():
     want = nlist_intersect_masked_ref(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, 1 << 20, la_block=8)
     assert not torch.equal(exact[1], masked[1]) or not exact[1].any()
     assert torch.equal(masked[0], want[0]) and torch.equal(masked[1], want[1])
+
+
+def _wave_inputs(seed, width=32, pad=5):
+    """Two waves of one random tree, laid out as the miner lays them out:
+    the (3, K, W) N-list planes, and for level 2 (every pair q < p: parent
+    p's singleton state, base p, extension q) and level 3 (each pair slot
+    (q, p) extended by every q2 < q: base q) the (3, Cpad) index rows with
+    ``pad`` padding slots of zeros."""
+    rng = np.random.default_rng(seed)
+    rows = random_db(rng, 200, 12, 7)
+    fl = jenc.build_flist(jenc.item_support(rows, 12), 2)
+    urows, w = jenc.dedup_rows(jenc.rank_encode(rows, fl))
+    packed = pack_nlists(build_ppc(urows, w).nlists(fl.k), width=width).astype(np.int32)
+    planes = np.ascontiguousarray(packed.transpose(2, 0, 1))
+    pairs = [(q, p) for p in range(fl.k) for q in range(p)]
+    trip = [(s, q, q2) for s, (q, _) in enumerate(pairs) for q2 in range(q)]
+
+    def idx_of(parent, base, ext):
+        idx = np.zeros((3, len(parent) + pad), np.int64)
+        idx[0, :len(parent)], idx[1, :len(parent)], idx[2, :len(parent)] = parent, base, ext
+        return idx
+
+    l2 = idx_of([p for _, p in pairs], [p for _, p in pairs], [q for q, _ in pairs])
+    l3 = idx_of(*zip(*trip))
+    return planes, l2, len(pairs), l3, len(trip)
+
+
+def _jax_wave(planes, prev_state, idx, stop, la_block):
+    """The JAX package's wave on the same inputs: jnp.take of the parent
+    states and of the N-list rows, then its masked (or exact) reference."""
+    state = jnp.take(jnp.asarray(prev_state), jnp.asarray(idx[0]), axis=0)
+    a = jnp.take(jnp.asarray(planes), jnp.asarray(idx[2]), axis=1)
+    y = jnp.take(jnp.asarray(planes), jnp.asarray(idx[1]), axis=1)
+    if stop is None:
+        merged = jax_exact_ref(a[0], a[1], y[0], y[1], state)
+        return np.asarray(merged), np.asarray(merged.sum(axis=1))
+    merged, sup = jax_masked_ref(a[0], a[1], a[2], y[0], y[1], state, stop, la_block=la_block)
+    return np.asarray(merged), np.asarray(sup)
+
+
+@pytest.mark.parametrize("la_block", [1, 8, 512])
+@pytest.mark.parametrize("stop", [None, 0, 4, 30, 1 << 30])
+def test_wave_plain_vs_jax(la_block, stop):
+    """The gather-fused wave's plain version against the JAX package's wave
+    (gather, then its reference) over two levels, rows < n_live, tolerance
+    0; padding rows are zero."""
+    planes, l2, n2, l3, n3 = _wave_inputs(la_block + (stop or 0) % 97)
+    prev = planes[2]  # level-2 parents: the singleton states
+    for idx, n_live in ((l2, n2), (l3, n3)):
+        assert n_live < idx.shape[1]
+        es = stop is not None
+        got, sup = nlist_wave_cuda(T(planes), T(prev), T(idx), n_live, early_stop=es,
+                                   min_count=stop or 0, la_block=la_block)
+        want, wsup = _jax_wave(planes, prev, idx, stop, la_block)
+        assert got.dtype == sup.dtype == torch.int32
+        np.testing.assert_array_equal(got[:n_live].numpy(), want[:n_live])
+        np.testing.assert_array_equal(sup[:n_live].numpy(), wsup[:n_live])
+        assert not got[n_live:].any() and not sup[n_live:].any()
+        prev = got.numpy()
+
+
+def test_wave_op_matches_gathered_op():
+    """``nlist_wave`` equals ``nlist_intersect`` on the rows it would have
+    gathered, B1 and B2 alike."""
+    planes, idx, n_live, _, _ = _wave_inputs(3)
+    P, I = T(planes), T(idx)
+    a, y, state = P[:, I[2]], P[:2, I[1]], P[2][I[0]]
+    for es in (False, True):
+        got = nlist_wave(P, P[2], I, n_live, early_stop=es, min_count=6, la_block=4)
+        want = nlist_intersect(a[0], a[1], y[0], y[1], state, a_cnt=a[2], early_stop=es,
+                               min_count=6, la_block=4)
+        assert torch.equal(got[0][:n_live], want[0][:n_live])
+        assert torch.equal(got[1][:n_live], want[1][:n_live])
+    with pytest.raises(ValueError, match="not available"):
+        nlist_wave(P, P[2], I, n_live, backend="cuda")

@@ -93,6 +93,50 @@ def level2_wave(miner, prep, min_count):
     return planes, planes[2], torch.from_numpy(idx).cuda(), len(ranks)
 
 
+def wave_bytes(planes, state, idx, n_live, stop=None):
+    """Bytes one wave must move: each input read once, each output written
+    once, as far as this wave's data needs them. Padding is a suffix and
+    merges nothing, so candidate b needs its A pre/post (extension item's
+    row) up to slot p_b, which is ``stop`` (B2: its first dead slot, from
+    ``ref.first_dead_slot``) or else the valid length, and with ``stop`` its
+    A counts up to the valid length (the liveness rule needs their suffix
+    mass); the counts (parent's state row) of the Y codes whose only
+    possible ancestor lies before p_b, and their pre/post (base item's row)
+    where the count is nonzero. A row that several candidates read counts
+    once, as does ``planes[2]`` when ``state`` is that plane. Every slot's
+    merged row and support is written; the live index columns are read.
+    -> (bytes, nonzero Y codes merged over all candidates)."""
+    K, W = planes.shape[1], planes.shape[2]
+    B = idx.shape[1]
+    live = idx[:, :n_live]
+    pad = torch.iinfo(torch.int32).max
+    lens = (planes[0] != pad).sum(1)
+    na, ny = lens[live[2]], lens[live[1]]
+    a_pre, y_pre = planes[0][live[2]], planes[0][live[1]]
+    p = na if stop is None else torch.minimum(stop.to(na.dtype), na)
+    # Y codes with y_pre <= a_pre[p] have their ancestor before slot p
+    top = a_pre.gather(1, p.clamp(max=W - 1)[:, None])[:, 0]
+    thr = torch.where(p < na, top, pad)
+    my = torch.minimum(torch.searchsorted(y_pre, thr[:, None].contiguous(), right=True)[:, 0], ny)
+    cols = torch.arange(W, device=idx.device)
+    y_need = cols < my[:, None]
+    y_nz = (state[live[0]] != 0) & y_need
+
+    def union(n_rows, rows, mask):  # (n_rows, W): slots some candidate needs
+        hits = torch.zeros((n_rows, W), dtype=torch.int32, device=idx.device)
+        return hits.index_add_(0, rows, mask.to(torch.int32)) > 0
+
+    pre_post = union(K, live[2], cols < p[:, None]) | union(K, live[1], y_nz)
+    counts = union(state.shape[0], live[0], y_need)
+    a_cnt = union(K, live[2], cols < na[:, None]) if stop is not None else torch.zeros_like(pre_post)
+    if state.data_ptr() == planes[2].data_ptr() and state.shape == planes[2].shape:
+        n_cnt = int((counts | a_cnt).sum())
+    else:
+        n_cnt = int(counts.sum()) + int(a_cnt.sum())
+    n = 8 * int(pre_post.sum()) + 4 * n_cnt + B * W * 4 + B * 4 + 3 * n_live * 8
+    return n, int(y_nz.sum())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -168,8 +212,8 @@ def main() -> int:
     )
     del flat, ids, ones
 
-    # B4 on each dataset's ranked rows (pumsb K=292: 15 output tiles;
-    # mushroom K=68: 3; kosarak K=57: 1), then a weighted, repeated-item
+    # B4 on each dataset's ranked rows (pumsb K=292: 6 output tiles of 128
+    # items; mushroom K=68: 1 of 128; kosarak K=57: 1 of 64), then a weighted, repeated-item
     # case at pumsb's shape, which sends rows through the exact scalar path
     for name in ("pumsb", "mushroom", "kosarak"):
         prep = preps[name]
@@ -227,6 +271,7 @@ def main() -> int:
         got = K.nlist_wave_cuda(planes, state, idx, n_live)
         want = nl_ref.nlist_wave_ref(planes, state, idx, n_live)
         err1 = assert_equal(f"nlist_intersect {name}", got, want)
+        exact = want[0][:n_live]
         mc = counts[name]
         labs = (512, 64, 8, 1)
         for stop in (0, mc // 2, mc, 2 * mc, 1 << 30):
@@ -237,17 +282,21 @@ def main() -> int:
                 assert_equal(f"nlist_intersect_es {name} min_count={stop} la_block={lab}", got, want)
         log(f"  B1 and B2 (wave entry) equal to their plain versions on {name} "
             f"(B2 at min_count 0, {mc // 2}, {mc}, {2 * mc}, 2^30 x la_block {', '.join(map(str, labs))})")
-        # bytes the function needs: for the live candidates a_pre, a_post and
-        # y_cnt read in full (B2 also a_cnt), y_pre/y_post only where y_cnt
-        # != 0; the merged rows written in full, padding rows included; one
-        # support per slot. Dead tiles are not subtracted.
+        # the bounds count what this wave's data needs, each input once (see
+        # wave_bytes); B2's at min_count mc and la_block 512, the case timed
+        # below
         live = idx[:, :n_live]
-        nz = int((state[live[0]] != 0).sum())
-        ops = nz * (math.ceil(math.log2(W)) + 2)
+        dead_at = nl_ref.first_dead_slot(exact, planes[2][live[2]], mc, 512)
+        by_1, nz1 = wave_bytes(planes, state, idx, n_live)
+        by_2, nz2 = wave_bytes(planes, state, idx, n_live, stop=dead_at)
+        logw = math.ceil(math.log2(W)) + 2
         shape = (f"{name} level-2 wave: {n_live} candidates, Cpad {B} x W {W}, "
-                 f"{nz} nonzero Y codes, wave entry (no gathers)")
-        b1, by1 = bound(n_live * W * 4 * 3 + B * W * 4 + nz * 8 + B * 4, ops)
-        b2, by2 = bound(n_live * W * 4 * 4 + B * W * 4 + nz * 8 + B * 4, ops)
+                 f"{nz1} nonzero Y codes, wave entry (no gathers)")
+        b1, by1 = bound(by_1, nz1 * logw)
+        b2, by2 = bound(by_2, nz2 * logw)
+        na = (planes[0][live[2]] != torch.iinfo(torch.int32).max).sum(1)
+        log(f"  bounds: B1 {by_1} bytes, B2 {by_2} bytes, each input read once "
+            f"({int((dead_at < na).sum())} of {n_live} candidates die before their last valid slot)")
         e1 = dict(
             shape=shape, max_abs_err=err1,
             ms=time_ms(lambda: K.nlist_wave_cuda(planes, state, idx, n_live)),
@@ -272,7 +321,7 @@ def main() -> int:
                     replaces=f"src/repro/kernels/nlist_intersect/kernel.py:{line}", **e)
             else:
                 entries[kname][f"at_{name}"] = e
-        del planes, state, idx, live
+        del planes, state, idx, live, exact, dead_at, na
     # phase 4 reports each mine's peak memory: nothing of phase 3 stays alive
     del preps, prep, rows_k, w1, lib_out, got, want
     torch.cuda.synchronize()

@@ -8,15 +8,13 @@
 //
 // Bound on Hopper: bytes. The function reads R*L int32 ranks once and writes
 // K*K int32; the contraction is 2*R*K^2 int8 operations, far below the
-// tensor cores' rate at these K. An earlier pair scatter (one atomic per
-// ordered pair of a row, L2 atomics once K^2 int32 left shared memory) was
-// bound by atomic contention on the hot pairs of dense data instead.
+// tensor cores' rate at these K.
 //
 // Design: the TPU kernel's one-hot product, on the int8 tensor cores.
 // - Grid: (upper-triangular T x T output tiles, diagonal included) x (row
 //   chunks), as many chunks as fill one resident wave of blocks. T = 64
 //   while one tile covers K (kosarak's 57), else 128, so each rank is read
-//   by fewer tiles (pumsb's K = 292: 6 tiles, not 15). A block owns item
+//   by few tiles (pumsb's K = 292: 6 tiles). A block owns item
 //   bands I = [i0, i0+T) and J = [j0, j0+T) and walks its chunk in row
 //   tiles of 128 rows.
 // - Per row tile it zeroes item-major int8 tiles X^T_I[i][r], X^T_J[j][r]
@@ -36,9 +34,7 @@
 //   C stays full and symmetric. The accumulators go through shared memory
 //   32 rows at a time, so that each warp's atomics cover 32 consecutive
 //   words: at mushroom's small R the atomics take a large share of the
-//   time. (Storing each block's partial tile and summing the chunks in a
-//   second kernel measured slower on mushroom's shape and no faster on
-//   pumsb's or kosarak's.) Any K (max_f1 = 4096: 528 tiles of 128).
+//   time. Any K (max_f1 = 4096: 528 tiles of 128).
 // Exactness outside the int8 range: a one-hot byte is 0 or 1, which holds a
 // row only when w[r] == 1 and its in-band items are distinct. Any other row
 // with w[r] != 0 and an in-band item (a weight, or a repeated item, found

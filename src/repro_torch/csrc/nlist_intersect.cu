@@ -36,8 +36,10 @@
 //   a_pre[t0] < y_pre <= a_pre[t1]. The block first bounds both lists'
 //   valid lengths with one round of NT strided probes (padding is a
 //   suffix), then walks A's valid part in chunks of SPT*NT slots, keeping
-//   only the chunk's pre/post/counts/merged row in shared memory (16 bytes a
-//   slot), and streams Y from where the last chunk stopped: 4*NT codes a
+//   only the chunk's pre/post and merged row in shared memory (12 bytes a
+//   slot; the liveness scan reads the chunk's A counts from global memory,
+//   where the mass pass left them in cache), and streams Y from where the
+//   last chunk stopped: 4*NT codes a
 //   step, counts first and pre/post only where the count is nonzero, the
 //   run ending at the first nonzero-count code past a_pre[t1]. Each chunk's
 //   merged slots are written once; the rest of the row is written as zeros.
@@ -52,8 +54,10 @@
 //   opens a chunk is checked before the chunk is read.
 // - Filling the card: one block per candidate, whose chain of chunks is
 //   sequential (the liveness rule is). With many candidates (n_live >= 4 per
-//   SM) blocks of 256 threads take 2,048-slot chunks (32 KB), so mushroom's
-//   W = 2048 rows are one chunk and 7 blocks share an SM; with fewer
+//   SM) blocks of 256 threads take 2,048-slot chunks (24 KB) at most 32
+//   registers a thread, so mushroom's W = 2048 rows are one chunk and 8
+//   blocks share an SM, both B1 and B2 (mushroom's 1,024 blocks are one
+//   resident wave on 132 SMs); with fewer
 //   (pumsb's level-2 wave has 1, kosarak's 215 against 132 SMs) blocks of
 //   1,024 threads take 4,096-slot chunks, so each chain is at most 4 chunks
 //   at W = 16384 and the SMs still hold 32 warps each. No W limit: shared
@@ -101,9 +105,10 @@ __device__ __forceinline__ int first_padded_probe(const int* pre, int n) {
   return (p < n && pre[p] == INT_MAX) ? p : n;
 }
 
-// NT threads; a chunk of SPT*NT A slots.
+// NT threads; a chunk of SPT*NT A slots. Blocks of 256 or fewer threads are
+// held to 2048 / NT resident blocks' worth of registers.
 template <bool kMasked, int NT, int SPT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, NT <= 256 ? 2048 / NT : 1)
 wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
             const int* __restrict__ a_cnt, const long long* __restrict__ a_idx,
             const int* __restrict__ y_pre, const int* __restrict__ y_post,
@@ -117,7 +122,6 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
   int* s_pre = smem;
   int* s_post = smem + CH;
   int* s_m = smem + 2 * CH;
-  int* s_cnt = smem + 3 * CH;  // kMasked only
   __shared__ long long scratch[NW];
   __shared__ long long s_scan[NW];
   __shared__ int s_first[2][NW];
@@ -175,7 +179,6 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
       s_pre[i] = ap[t0 + i];
       s_post[i] = aq[t0 + i];
       s_m[i] = 0;
-      if (kMasked) s_cnt[i] = ac[t0 + i];
     }
     const int hi = t0 + n < na ? ap[t0 + n] : INT_MAX;
     __syncthreads();
@@ -222,14 +225,11 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
     int dead = INT_MAX;  // first dead slot in this chunk, if any
     if (kMasked) {
       const int s0 = tid * SPT;
-      long long loc[SPT];
+      const int* acc = ac + t0 + s0;  // this thread's A counts, cached
       long long ts = 0;
 #pragma unroll
-      for (int k = 0; k < SPT; ++k) {
-        const int i = s0 + k;
-        loc[k] = i < n ? (long long)s_m[i] - s_cnt[i] : 0;
-        ts += loc[k];
-      }
+      for (int k = 0; k < SPT; ++k)
+        if (s0 + k < n) ts += (long long)s_m[s0 + k] - acc[k];
       long long x = ts;  // inclusive warp scan
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
@@ -249,9 +249,10 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
       int mine = INT_MAX;
 #pragma unroll
       for (int k = 0; k < SPT; ++k) {
+        if (s0 + k >= n) break;
         const int p = t0 + s0 + k;
-        if (s0 + k < n && p % la_block == 0 && d < theta && mine == INT_MAX) mine = p;
-        d += loc[k];
+        if (p % la_block == 0 && d < theta && mine == INT_MAX) mine = p;
+        d += (long long)s_m[s0 + k] - acc[k];
       }
       mine = warp_min(mine);
       if (lane == 0) s_deadw[warp] = mine;
@@ -277,7 +278,7 @@ int launch_t(const int* a_pre, const int* a_post, const int* a_cnt, const long l
              const int* y_pre, const int* y_post, const long long* y_idx, const int* y_cnt,
              const long long* c_idx, long long B, int La, int Ly, long long n_live,
              int la_block, long long min_count, int* out, int* sup, cudaStream_t s) {
-  const size_t smem = (size_t)(kMasked ? 4 : 3) * SPT * NT * sizeof(int);
+  const size_t smem = (size_t)3 * SPT * NT * sizeof(int);
   auto kernel = wave_kernel<kMasked, NT, SPT>;
   // dynamic plus static shared memory above 48 KB needs the opt-in
   static bool opted_in = false;

@@ -29,6 +29,16 @@ def nlist_intersect_masked_ref(
     where the all-alive prefix sum plus the suffix mass misses the
     threshold — no loop over tiles."""
     exact = intersect_torch(a_pre, a_post, y_pre, y_post, y_cnt)  # int64
+    La = exact.shape[1]
+    keep = torch.arange(La, device=exact.device) < first_dead_slot(exact, a_cnt, min_count, la_block)[:, None]
+    merged = exact * keep
+    return merged.to(torch.int32), merged.sum(dim=1).to(torch.int32)
+
+
+def first_dead_slot(exact, a_cnt, min_count, la_block):
+    """(B,) int64: where B2's rule zeroes each candidate's row from — the
+    first slot of its first dead ``la_block`` tile, or La if it never dies —
+    given the exact merged row (B1's) and the A counts."""
     B, La = exact.shape
     lab = max(1, min(int(la_block), La))
     nt = (La + lab - 1) // lab
@@ -41,9 +51,7 @@ def nlist_intersect_masked_ref(
     rem = torch.flip(torch.cumsum(torch.flip(mass, [1]), 1), [1])  # inclusive suffix
     before = torch.cumsum(tsum, 1) - tsum  # support before each tile if all alive
     dead = torch.cummax((before + rem < int(min_count)).to(torch.int32), dim=1).values.bool()
-    keep = (~dead).repeat_interleave(lab, dim=1)[:, :La]
-    merged = exact * keep
-    return merged.to(torch.int32), merged.sum(dim=1).to(torch.int32)
+    return torch.clamp((~dead).sum(1) * lab, max=La)
 
 
 def nlist_wave_ref(planes, prev_state, idx, n_live, *, early_stop=False, min_count=0,

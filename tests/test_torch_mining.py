@@ -142,3 +142,66 @@ def test_chip_smoke_imports_and_cpu_exit(tmp_path):
         out = subprocess.run([sys.executable, str(script)], capture_output=True,
                              text=True, timeout=300, cwd=cwd)
         assert out.returncode != 0 and out.stdout == ""
+
+
+def test_chip_compare_imports_and_cpu_exit():
+    tree = ast.parse((ROOT / "chip_compare.py").read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")}
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, str(ROOT / "chip_compare.py")], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode != 0 and out.stdout == ""
+
+
+@pytest.mark.parametrize("stop_mult", [None, 1, 3])
+def test_chip_smoke_wave_bytes_counts_valid_prefixes(stop_mult):
+    """chip_smoke's B1/B2 bound bytes equal a count made slot by slot: the
+    union over candidates of A pre/post up to the stop slot (B2: plus A
+    counts up to the valid length), the Y counts of the codes whose ancestor
+    slot lies before it and their pre/post where nonzero, each row once."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import wave_bytes
+    from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner
+    from repro_torch.data import synth
+    from repro_torch.kernels.nlist_intersect import ref as nl_ref
+
+    rows, n_items = synth.load("mushroom", scale=0.02)
+    mc = int(np.ceil(0.15 * len(rows)))
+    miner = HPrepostMiner("cpu", HPrepostConfig())
+    prep = miner.prepare(rows, n_items, mc)
+    qs, ps = np.nonzero(prep.C >= mc)
+    ranks = np.stack([qs, ps], 1).astype(np.int32)
+    idx = torch.from_numpy(miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))[0])
+    planes = prep.packed[0].permute(2, 0, 1).contiguous()
+    state, n_live = planes[2], len(ranks)
+    live = idx[:, :n_live]
+    stop = None
+    if stop_mult:
+        exact = nl_ref.nlist_wave_ref(planes, state, idx, n_live)[0][:n_live]
+        stop = nl_ref.first_dead_slot(exact, planes[2][live[2]], stop_mult * mc, 8)
+    got, got_nz = wave_bytes(planes, state, idx, n_live, stop=stop)
+
+    B, W = idx.shape[1], planes.shape[2]
+    pad = torch.iinfo(torch.int32).max
+    pre_post, counts, want_nz = set(), set(), 0  # (row, slot); counts: rows of planes[2] = state
+    for b in range(n_live):
+        qa, qy, qc = (int(r) for r in (live[2, b], live[1, b], live[0, b]))
+        ap, yp, yc = planes[0][qa], planes[0][qy], state[qc]
+        na, ny = int((ap != pad).sum()), int((yp != pad).sum())
+        p = na if stop is None else min(int(stop[b]), na)
+        anc = torch.searchsorted(ap[:na].contiguous(), yp[:ny].contiguous()) - 1
+        my = int((anc < p).sum())
+        assert bool((anc[:my] < p).all())  # the Y codes needed are a prefix
+        pre_post |= {(qa, i) for i in range(p)}
+        pre_post |= {(qy, j) for j in range(my) if int(yc[j])}
+        counts |= {(qc, j) for j in range(my)}
+        if stop is not None:
+            counts |= {(qa, i) for i in range(na)}
+        want_nz += int((yc[:my] != 0).sum())
+    want = 8 * len(pre_post) + 4 * len(counts) + B * W * 4 + B * 4 + 3 * n_live * 8
+    assert (got, got_nz) == (want, want_nz)
+    if stop_mult == 3:
+        assert int((stop < (planes[0][live[2]] != pad).sum(1)).sum()) > 0  # some die early

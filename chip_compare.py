@@ -10,7 +10,7 @@ like in one run on one card.
 parent (``git archive``) into a directory and run parent, this, this, parent.
 
 At the main path's shapes — the level-2 waves of mushroom@0.15, pumsb@0.15
-and kosarak@0.01, their ranked rows, kosarak's rows — it times, each with
+and kosarak@0.01, their ranked rows, their rows — it times, each with
 the stream held while the launches queue (``queued``, device time) and
 without (``unqueued``, which also counts the host's launch time):
   - ``b1_rows`` / ``b2_rows``: B1 and B2 on the gathered rows, through the
@@ -18,7 +18,10 @@ without (``unqueued``, which also counts the host's launch time):
     every commit of the port has: the same kernel inputs on both sides;
   - ``b1_wave`` / ``b2_wave``: one wave as the checkout's miner runs it
     (``HPrepostMiner._wave``: its index copy, any gathers, the kernel);
-  - ``b4``: ``cooccur_cuda`` on the ranked rows; ``b3``: ``histogram_cuda``.
+  - ``b4``: ``cooccur_cuda`` on the ranked rows; ``b3``: ``histogram_cuda``
+    on the rows (weights all ones, as Job 1 calls it), and
+    ``b3_zero_weights`` with every weight 0: a kernel that skips a zero
+    weight then makes the same loads and no atomic.
 B2 runs at the dataset's min_count, la_block 512. Every output is held to
 exact equality with the checkout's plain version. Prints one JSON line.
 """
@@ -111,13 +114,13 @@ def main() -> int:
         assert_equal(f"B4 {name}", (K.cooccur_cuda(ranked, w1, n_items=prep.fl.k),),
                      (cooc_ref.cooccur_ref(ranked, w1, n_items=prep.fl.k),))
         r["b4"] = both(lambda: K.cooccur_cuda(ranked, w1, n_items=prep.fl.k))
-        if name == "kosarak":
-            rows_d = torch.from_numpy(rows).to(dev)
-            assert_equal("B3 kosarak", (K.histogram_cuda(rows_d, w1, n_bins=n_items),),
-                         (hist_ref.histogram_ref(rows_d, w1, n_bins=n_items),))
-            r["b3"] = both(lambda: K.histogram_cuda(rows_d, w1, n_bins=n_items))
-            del rows_d
-        del prep, planes, state, idx_t, ranked, lut, w1
+        rows_d = torch.from_numpy(rows).to(dev)
+        w0 = torch.zeros_like(w1)
+        for key, wb in (("b3", w1), ("b3_zero_weights", w0)):
+            assert_equal(f"{key} {name}", (K.histogram_cuda(rows_d, wb, n_bins=n_items),),
+                         (hist_ref.histogram_ref(rows_d, wb, n_bins=n_items),))
+            r[key] = both(lambda: K.histogram_cuda(rows_d, wb, n_bins=n_items))
+        del prep, planes, state, idx_t, ranked, lut, w1, w0, rows_d
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

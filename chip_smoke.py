@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
      with its plain PyTorch version on the card, and timed beside it (and
      beside one PyTorch library call where one computes the same function);
      B1/B2 through the wave entry the miner calls, B4 also on a weighted,
-     repeated-item case at pumsb's shape;
+     repeated-item case at pumsb's shape, B3 on every dataset's rows and on
+     the cases the main path does not reach (``hist_cases``);
   4. end to end: ``repro_torch.mining.mine`` (hprepost, on the card, full
      dataset scale) on mushroom@0.15 with early stop on and off, pumsb@0.15
      and kosarak@0.01; each itemsets dict must equal the host PrePost miner's,
@@ -79,6 +80,34 @@ def assert_equal(name: str, got, want) -> int:
         if err:
             raise AssertionError(f"{name}: max abs error {err} against the plain version")
     return 0
+
+
+def hist_cases(dev):
+    """B3's cases beyond the main path, on the card: (label, rows, weights,
+    n_bins). Rows of 47 slots with PAD anywhere, a repeated item in every
+    row and ids at or past n_bins; weights 0, negative and large enough to
+    wrap int32."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    R, L, n_bins = 200_000, 47, 41_270
+    rows = torch.randint(0, n_bins, (R, L), generator=gen, device=dev, dtype=torch.int32)
+    rows[:, 5] = rows[:, 3]
+    rows[torch.rand((R, L), generator=gen, device=dev) < 0.5] = -1
+    far = torch.rand((R, L), generator=gen, device=dev) < 0.01
+    rows[far] = n_bins + torch.randint(0, 1 << 20, (int(far.sum()),), generator=gen, device=dev,
+                                       dtype=torch.int32)
+    pick = torch.tensor([0, 1, -1, -7, 3, 1 << 30, 2**31 - 1, -2**31], dtype=torch.int32, device=dev)
+    w = pick[torch.randint(0, len(pick), (R,), generator=gen, device=dev)]
+    small = torch.randint(-1, 500, (100_003, 3), generator=gen, device=dev, dtype=torch.int32)
+    ws = torch.randint(-3, 4, (100_003,), generator=gen, device=dev, dtype=torch.int32)
+    return [
+        ("weights 0, negative and wrapping; repeated items; PAD mid-row; ids >= n_bins", rows, w, n_bins),
+        ("a misaligned view rows[1:] (L = 47) and weights[1:]", rows[1:], w[1:], n_bins),
+        ("70,000 bins (bins in global memory)", rows, w, 70_000),
+        ("70,000 bins, misaligned view rows[3:]", rows[3:], w[3:], 70_000),
+        ("7,117 bins (pumsb's universe), weighted", rows, w, 7_117),
+        ("L = 3, 500 bins (tiles span more rows than a stage holds weights for)", small, ws, 500),
+        ("L = 3, misaligned view rows[1:]", small[1:], ws[1:], 500),
+    ]
 
 
 def level2_wave(miner, prep, min_count):
@@ -186,31 +215,46 @@ def main() -> int:
     miner = HPrepostMiner("cuda", HPrepostConfig())
     preps = {k: miner.prepare(data[k][0], data[k][1], counts[k]) for k in data}
 
-    # B3 on kosarak's full rows
-    rows_k = torch.from_numpy(data["kosarak"][0]).to(dev)
-    n_bins = data["kosarak"][1]
-    w1 = torch.ones(rows_k.shape[0], dtype=torch.int32, device=dev)
-    got = K.histogram_cuda(rows_k, w1, n_bins=n_bins)
-    want = hist_ref.histogram_ref(rows_k, w1, n_bins=n_bins)
-    err = assert_equal("histogram", (got,), (want,))
-    flat = rows_k.reshape(-1).long()
-    ids = torch.where(flat >= 0, flat, n_bins)  # PAD -> one spare bin
-    ones = torch.ones_like(ids, dtype=torch.int32)
-    lib_out = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
-    R, L = rows_k.shape
-    b, by = bound(R * L * 4 + R * 4 + n_bins * 4, R * L)
-    entries["histogram"] = dict(
-        source="src/repro_torch/csrc/histogram.cu",
-        replaces="src/repro/kernels/histogram/kernel.py:22",
-        shape=f"kosarak rows {R}x{L}, {n_bins} bins", max_abs_err=err,
-        ms=time_ms(lambda: K.histogram_cuda(rows_k, w1, n_bins=n_bins)),
-        unqueued_ms=time_ms(lambda: K.histogram_cuda(rows_k, w1, n_bins=n_bins), queued=False),
-        plain_ms=time_ms(lambda: hist_ref.histogram_ref(rows_k, w1, n_bins=n_bins)),
-        library_ms=time_ms(lambda: lib_out.zero_().index_add_(0, ids, ones)),
-        library_call="index_add_ over the flattened ids (PAD mapped outside the timing)",
-        bound_ms=b, bound_by=by,
-    )
-    del flat, ids, ones
+    # B3 on each dataset's rows as Job 1 gives them (weights all ones), then
+    # the cases the main path does not reach
+    for name in ("kosarak", "pumsb", "mushroom"):
+        rows_d = torch.from_numpy(data[name][0]).to(dev)
+        n_bins = data[name][1]
+        R, L = rows_d.shape
+        w1 = torch.ones(R, dtype=torch.int32, device=dev)
+        got = K.histogram_cuda(rows_d, w1, n_bins=n_bins)
+        want = hist_ref.histogram_ref(rows_d, w1, n_bins=n_bins)
+        err = assert_equal(f"histogram {name}", (got,), (want,))
+        flat = rows_d.reshape(-1)
+        valid = flat[(flat >= 0) & (flat < n_bins)].long()  # compacted outside the timing
+        assert_equal(f"bincount {name}", (torch.bincount(valid, minlength=n_bins).to(torch.int32),), (want,))
+        ids = torch.where(flat >= 0, flat.long(), n_bins)  # PAD -> one spare bin
+        ones = torch.ones_like(ids, dtype=torch.int32)
+        lib_out = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
+        b, by = bound(R * L * 4 + R * 4 + n_bins * 4, R * L)
+        e = dict(
+            shape=f"{name} rows {R}x{L}, {n_bins} bins, {valid.numel()} valid slots", max_abs_err=err,
+            ms=time_ms(lambda: K.histogram_cuda(rows_d, w1, n_bins=n_bins)),
+            unqueued_ms=time_ms(lambda: K.histogram_cuda(rows_d, w1, n_bins=n_bins), queued=False),
+            plain_ms=time_ms(lambda: hist_ref.histogram_ref(rows_d, w1, n_bins=n_bins)),
+            library_ms=time_ms(lambda: torch.bincount(valid, minlength=n_bins)),
+            library_call="torch.bincount over the valid ids (compacted outside the timing)",
+            index_add_ms=time_ms(lambda: lib_out.zero_().index_add_(0, ids, ones)),
+            index_add_call="index_add_ of ones over every slot, PAD mapped to one spare bin",
+            bound_ms=b, bound_by=by,
+        )
+        if name == "kosarak":
+            entries["histogram"] = dict(source="src/repro_torch/csrc/histogram.cu",
+                                        replaces="src/repro/kernels/histogram/kernel.py:22", **e)
+        else:
+            entries["histogram"][f"at_{name}"] = e
+        log(f"  B3 equal to its plain version on {name} ({R}x{L}, {n_bins} bins)")
+        del rows_d, w1, flat, valid, ids, ones, lib_out
+    for what, rows_d, wts, n_bins in hist_cases(dev):
+        got = K.histogram_cuda(rows_d, wts, n_bins=n_bins)
+        assert_equal(f"histogram, {what}", (got,), (hist_ref.histogram_ref(rows_d, wts, n_bins=n_bins),))
+        log(f"  B3 equal to its plain version: {what}")
+    del rows_d, wts
 
     # B4 on each dataset's ranked rows (pumsb K=292: 6 output tiles of 128
     # items; mushroom K=68: 1 of 128; kosarak K=57: 1 of 64), then a weighted, repeated-item
@@ -323,7 +367,7 @@ def main() -> int:
                 entries[kname][f"at_{name}"] = e
         del planes, state, idx, live, exact, dead_at, na
     # phase 4 reports each mine's peak memory: nothing of phase 3 stays alive
-    del preps, prep, rows_k, w1, lib_out, got, want
+    del preps, prep, got, want
     torch.cuda.synchronize()
     log("kernels: all four equal to their plain versions on the card")
 

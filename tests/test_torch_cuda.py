@@ -66,11 +66,53 @@ def _nlist_batch(rng, B, La, Ly):
     return out
 
 
-@pytest.mark.parametrize("n_bins", [7, 1000, 41270, 70000])
-def test_histogram_kernel(cuda, n_bins):
-    rng = np.random.default_rng(n_bins)
-    rows = T(rng.integers(-1, n_bins, size=(3000, 20)).astype(np.int32), cuda)
-    w = T(rng.integers(0, 5, size=3000).astype(np.int32), cuda)
+def _hist_case(case):
+    """(rows, weights, n_bins, view) for B3: the four random universes, then
+    the cases the main path does not reach. ``view``: the test takes
+    ``rows[view:]`` and ``weights[view:]``, a view that is not 16-byte
+    aligned (L odd)."""
+    if case.isdigit():  # PAD and ids at random, weights 0..4
+        n_bins = int(case)
+        rng = np.random.default_rng(n_bins)
+        rows = rng.integers(-1, n_bins, size=(3000, 20)).astype(np.int32)
+        return rows, rng.integers(0, 5, size=3000).astype(np.int32), n_bins, 0
+    rng = np.random.default_rng(len(case))
+    R, L, n_bins = 20_000, 47, 41_270
+    rows = rng.integers(0, n_bins, size=(R, L)).astype(np.int32)
+    rows[:, 30:] = -1  # PAD as a suffix, as the main path has it
+    w = np.ones(R, np.int32)
+    if case == "weights-0-negative-wrapping":
+        w = rng.choice(np.array([0, -1, -7, 3, 1 << 30, 2**31 - 1, -2**31]), size=R).astype(np.int32)
+    elif case == "repeated-items":
+        rows[:, 1] = rows[:, 0]
+        rows[::3, 2] = rows[::3, 0]
+    elif case == "pad-mid-row":
+        rows[rng.random((R, L)) < 0.4] = -1
+    elif case == "ids-past-n_bins":
+        far = rng.random((R, L)) < 0.05
+        rows[far] = n_bins + rng.integers(0, 1 << 20, size=int(far.sum()))
+    elif case.startswith("misaligned-view"):
+        rows[rng.random((R, L)) < 0.4] = -1
+        w = rng.integers(-3, 4, size=R).astype(np.int32)
+        return rows, w, (70_000 if case.endswith("70000") else n_bins), 1
+    elif case == "short-rows":  # L = 3: a tile spans more rows than a stage holds weights for
+        rows = rng.integers(-1, 500, size=(100_003, 3)).astype(np.int32)
+        return rows, rng.integers(-3, 4, size=100_003).astype(np.int32), 500, 0
+    return rows, w, n_bins, 0
+
+
+@pytest.mark.parametrize("case", [
+    "7", "1000", "41270", "70000", "weights-0-negative-wrapping", "repeated-items",
+    "pad-mid-row", "ids-past-n_bins", "misaligned-view", "misaligned-view-70000", "short-rows",
+])
+def test_histogram_kernel(cuda, case):
+    """Bit-exact against the plain version: int32 sums wrap mod 2^32, ids
+    outside [0, n_bins) count nothing, a repeated item counts per slot; 70,000
+    bins take the kernel's global-memory path."""
+    rows, w, n_bins, view = _hist_case(case)
+    rows, w = T(rows, cuda)[view:], T(w, cuda)[view:]
+    if view:
+        assert rows.data_ptr() % 16 != 0
     before = histogram_cuda.launches
     got = histogram_cuda(rows, w, n_bins=n_bins)
     torch.cuda.synchronize()

@@ -51,6 +51,39 @@ def test_histogram_vs_pallas(R, L, n_bins, weighted):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", ["negative-weights", "wrapping-weights", "ids-past-n_bins",
+                                  "repeated-items", "pad-mid-row"])
+def test_histogram_edge_cases_vs_pallas(case):
+    """The plain version is held to the Pallas kernel, the function B3
+    ports: ids at or past n_bins count nothing there. (The reference's
+    ``ops.py`` scatter path for more than 8192 bins clips such ids into the
+    last bin instead; the main path never passes one.) Sums are int32 and
+    wrap mod 2^32 on both sides."""
+    rng = np.random.default_rng(len(case))
+    R, L, n_bins = 300, 12, 129
+    rows = rng.integers(0, n_bins, size=(R, L)).astype(np.int32)
+    rows[:, 9:] = -1
+    w = rng.integers(1, 5, size=R).astype(np.int32)
+    if case == "negative-weights":
+        w = rng.integers(-9, 9, size=R).astype(np.int32)
+    elif case == "wrapping-weights":
+        w = rng.choice(np.array([2**31 - 1, -2**31, 1 << 30, 3]), size=R).astype(np.int32)
+        rows[:, :4] = 7  # bin 7 gets 4 * R such weights
+    elif case == "ids-past-n_bins":
+        far = rng.random((R, L)) < 0.2
+        rows[far] = n_bins + rng.integers(0, 300, size=int(far.sum()))
+    elif case == "repeated-items":
+        rows[:, 1] = rows[:, 0]
+        rows[::2, 2] = rows[::2, 0]
+    elif case == "pad-mid-row":
+        rows[rng.random((R, L)) < 0.4] = -1
+    want = histogram_pallas(jnp.asarray(rows), jnp.asarray(w), n_bins=n_bins,
+                            row_block=64, bin_block=128, interpret=True)
+    got = histogram_cuda(T(rows), T(w), n_bins=n_bins)  # CPU tensors: the plain version
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_histogram_large_universe_vs_reference():
     """Above the reference's 8192-bin one-hot cut-off (its scatter path),
     at kosarak's universe; the plain version builds no one-hot tensor."""

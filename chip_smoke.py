@@ -12,23 +12,36 @@ Phases, in order; any failure raises and exits non-zero:
      B1/B2 through the wave entry the miner calls, B4 also on a weighted,
      repeated-item case at pumsb's shape, B3 on every dataset's rows and on
      the cases the main path does not reach (``hist_cases``);
-  4. end to end: ``repro_torch.mining.mine`` (hprepost, on the card, full
-     dataset scale) on mushroom@0.15 with early stop on and off, pumsb@0.15
-     and kosarak@0.01; each itemsets dict must equal the host PrePost miner's,
-     and every kernel's launch counter must have moved in this phase;
+  4. end to end: one-shot hprepost mines (on the card, full dataset scale)
+     through ``MiningEngine(device="cuda", prep_cache_bytes=0)``, so each
+     pays for its own prep, on mushroom@0.15 with early stop on and off,
+     pumsb@0.15 and kosarak@0.01; each itemsets dict must equal the host
+     PrePost miner's, and every kernel's launch counter must have moved in
+     this phase;
   5. where the time goes: each mine again, warm, under torch.profiler —
-     device busy time, idle share and the top device ops.
-Then one JSON line describing the kernels, and last the device line.
+     device busy time, idle share and the top device ops;
+  6. the resident engine: ``MiningEngine(device="cuda").sweep`` on mushroom
+     at 0.3/0.2/0.15 (early stop on, then off on the cached prep) and on
+     kosarak at 0.02/0.01, one prepare per dataset (B3 and B4 launched once
+     each per prepare, a wave kernel on every threshold); a snapshot warm
+     start of the kosarak sweep in a fresh engine (no prepare, no prep
+     launch); the kernel tuner cold, then warm with zero trials; and an LRU
+     eviction that returns the evicted prep's device memory. Every itemsets
+     dict must equal the host PrePost miner's.
+Then one JSON line describing the kernels (launches: phases 4 and 6), and
+last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
 either it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -166,6 +179,163 @@ def wave_bytes(planes, state, idx, n_live, stop=None):
     return n, int(y_nz.sum())
 
 
+def engine_phase(K, data, host) -> dict[str, int]:
+    """Phase 6: the resident ``MiningEngine`` on the card (see the module
+    docstring). ``host`` maps (dataset, min_count) to the host PrePost
+    miner's itemsets, filled by phase 4 and here. -> this phase's launches."""
+    from repro_torch.core.prepost import mine_prepost
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    def host_answer(name, min_count):
+        if (name, min_count) not in host:
+            rows, n_items = data[name]
+            host[name, min_count] = mine_prepost(rows, n_items, min_count).itemsets
+        return host[name, min_count]
+
+    def check_host(what, name, results):
+        for r in results:
+            want = host_answer(name, r.min_count)
+            if r.itemsets != want:
+                raise AssertionError(f"{what} at min_count {r.min_count}: {len(r.itemsets)} itemsets "
+                                     f"vs {len(want)} from the host PrePost miner")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def moved_since(before):
+        return {k: v - before[k] for k, v in K.launches().items()}
+
+    K.reset_launches()
+    spec = MineSpec(algorithm="hprepost")
+    sweeps = {"mushroom": [0.3, 0.2, 0.15], "kosarak": [0.02, 0.01]}
+
+    # 6a. planned sweeps: one prepare per dataset at the loosest threshold
+    eng = MiningEngine(device="cuda")
+    oneshot = MiningEngine(device="cuda", prep_cache_bytes=0)
+    prep_bytes = {}  # dataset -> its cached PreparedDB's prep_bytes
+    for name, fracs in sweeps.items():
+        rows, n_items = data[name]
+        _, fp_s = timed(lambda: MiningEngine._digest(rows))  # what a new engine hashes first
+        log(f"engine fingerprint {name}: sha1 of {rows.nbytes} bytes of rows on the host {fp_s:.4f}s")
+        for es in ((True, False) if name == "mushroom" else (True,)):
+            sp = spec.with_(early_stop=es)
+            kname = "nlist_intersect_es" if es else "nlist_intersect"
+            miner = eng.frontend("hprepost").miner_for(sp)  # the resident miner the sweep uses
+            waves0, before, p0 = miner.stage_counters["waves"], K.launches(), eng.stats["prepares"]
+            in_use = eng.cache_info()["bytes_in_use"]
+            results, wall = timed(lambda: eng.sweep(rows, n_items, sp, fracs))
+            moved = moved_since(before)
+            prepares = eng.stats["prepares"] - p0
+            waves = miner.stage_counters["waves"] - waves0
+            prep_bytes.setdefault(name, eng.cache_info()["bytes_in_use"] - in_use)
+            want_prepares = 1 if es else 0  # early stop is execution-only: the prep is cached
+            if prepares != want_prepares or not (moved["histogram"] == moved["cooccur"] == prepares):
+                raise AssertionError(f"sweep {name} early_stop={es}: {prepares} prepares, launches {moved}")
+            if moved[kname] != waves or not all(r.stage_times_s["planned_candidates"] > 0
+                                                for r in results):
+                raise AssertionError(f"sweep {name} early_stop={es}: {kname} launched {moved[kname]} "
+                                     f"times for {waves} waves, or a threshold ran no wave")
+            check_host(f"sweep {name} early_stop={es}", name, results)
+            singles = [timed(lambda f=f: oneshot.submit(rows, n_items, sp.with_(min_sup=f)))[1]
+                       for f in fracs]
+            log(f"engine sweep {name}@{fracs} early_stop={es}: wall {wall:.4f}s against "
+                f"{sum(singles):.4f}s for one-shot mines ({', '.join(f'{t:.4f}' for t in singles)}); "
+                f"{prepares} prepare(s), launches {json.dumps(moved)}, "
+                f"prep sources {[r.service_stats['prep_source'] for r in results]}, "
+                f"itemsets {[len(r.itemsets) for r in results]} == host mine_prepost")
+    del eng, oneshot
+
+    # 6b. snapshot warm start: a fresh engine on the same store prepares nothing
+    rows, n_items = data["kosarak"]
+    with tempfile.TemporaryDirectory() as snap:
+        cold = MiningEngine(device="cuda", snapshot_dir=snap)
+        cold_res, cold_wall = timed(lambda: cold.sweep(rows, n_items, spec, sweeps["kosarak"]))
+        before = K.launches()
+        warm = MiningEngine(device="cuda", snapshot_dir=snap)
+        warm_res, warm_wall = timed(lambda: warm.sweep(rows, n_items, spec, sweeps["kosarak"]))
+        moved = moved_since(before)
+        info = warm.cache_info()
+        if (warm.stats["prepares"] != 0 or info["snapshot_hits"] < 1 or moved["histogram"]
+                or moved["cooccur"]
+                or any(r.service_stats["prep_source"] != "snapshot" for r in warm_res)):
+            raise AssertionError(f"snapshot warm start: stats {warm.stats}, cache {info}, "
+                                 f"launches {moved}")
+        if [r.itemsets for r in warm_res] != [r.itemsets for r in cold_res]:
+            raise AssertionError("snapshot warm start: itemsets differ from the cold sweep")
+        check_host("snapshot warm start", "kosarak", warm_res)
+        prep = cold.telemetry.histogram("engine.prep_s").snapshot()["sum_s"]
+        hit = warm.telemetry.histogram("engine.snapshot_hit_s").snapshot()["sum_s"]
+        log(f"engine snapshot kosarak@{sweeps['kosarak']}: cold sweep {cold_wall:.4f}s with prep "
+            f"{prep:.4f}s; fresh engine on the store {warm_wall:.4f}s with warm start (store read + "
+            f"host-to-device) {hit:.4f}s; 0 prepares, launches {json.dumps(moved)}, "
+            f"{info['snapshot_store']['bytes_in_use']} bytes on disk")
+        del cold, warm
+
+    # 6c. the kernel tuner: cold search, then a fresh engine with zero trials
+    rows, n_items = data["mushroom"]
+    tspec = spec.with_(min_sup=0.15, tune=True)
+    with tempfile.TemporaryDirectory() as snap:
+        e1 = MiningEngine(device="cuda", snapshot_dir=snap)
+        search_s = []
+        search = e1.tuner._search
+
+        def timed_search(*a):
+            t0 = time.perf_counter()
+            out = search(*a)
+            search_s.append(time.perf_counter() - t0)
+            return out
+
+        e1.tuner._search = timed_search
+        r1, wall1 = timed(lambda: e1.submit(rows, n_items, tspec))
+        st1 = dict(e1.tuner.stats)
+        with open(Path(snap) / "kernel_plans.json") as f:
+            plans = json.load(f)["plans"]
+        e2 = MiningEngine(device="cuda", snapshot_dir=snap)
+        r2, wall2 = timed(lambda: e2.submit(rows, n_items, tspec))
+        st2 = dict(e2.tuner.stats)
+        if st1["trials"] <= 0 or st1["tuned"] <= 0 or st2["trials"] != 0 or st2["plan_hits"] <= 0:
+            raise AssertionError(f"tuner: cold stats {st1}, warm stats {st2}")
+        check_host("tuned mine", "mushroom", [r1, r2])
+        log(f"engine tuner mushroom@0.15: cold {json.dumps(st1)}, search {sum(search_s):.4f}s over "
+            f"{len(search_s)} key(s), mine wall {wall1:.4f}s; warm {json.dumps(st2)}, wall "
+            f"{wall2:.4f}s; plans {json.dumps(plans)}")
+        del e1, e2
+
+    # 6d. LRU eviction returns the evicted prep's device memory
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    ref = MiningEngine(device="cuda")
+    ref.submit(data["kosarak"][0], data["kosarak"][1], spec.with_(min_sup=0.01))
+    only_kosarak = torch.cuda.memory_allocated()
+    del ref
+    gc.collect()
+    budget = prep_bytes["kosarak"] + prep_bytes["mushroom"] // 2  # fits kosarak's prep, not both
+    lru = MiningEngine(device="cuda", prep_cache_bytes=budget)
+    lru.submit(*data["mushroom"], spec.with_(min_sup=0.15))
+    with_mushroom = torch.cuda.memory_allocated()
+    lru.submit(*data["kosarak"], spec.with_(min_sup=0.01))  # evicts mushroom's prep
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    info = lru.cache_info()
+    if info["evictions"] != 1 or info["entries"] != 1 or abs(after - only_kosarak) > MB:
+        raise AssertionError(f"LRU eviction: cache {info}, {after} bytes allocated against "
+                             f"{only_kosarak} with only kosarak's prep resident")
+    log(f"engine LRU: budget {budget} bytes (preps: mushroom {prep_bytes['mushroom']}, kosarak "
+        f"{prep_bytes['kosarak']}); allocated {base} bytes before, {with_mushroom} with mushroom's prep, "
+        f"{after} after kosarak's insert evicted it, {only_kosarak} with only kosarak's; "
+        f"evictions {info['evictions']}")
+    del lru
+    gc.collect()
+    got = K.launches()
+    if not all(got.values()):
+        raise AssertionError(f"a kernel was not launched in phase 6: {got}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -181,7 +351,7 @@ def main() -> int:
     from repro_torch.kernels.cooccur import ref as cooc_ref
     from repro_torch.kernels.histogram import ref as hist_ref
     from repro_torch.kernels.nlist_intersect import ref as nl_ref
-    from repro_torch.mining import MineSpec, mine
+    from repro_torch.mining import MineSpec, MiningEngine
 
     # ---------------------------------------------------------- 1. environment
     smi = subprocess.run(
@@ -372,7 +542,11 @@ def main() -> int:
     log("kernels: all four equal to their plain versions on the card")
 
     # ---------------------------------------------------------- 4. end to end
+    # one-shot mines that pay for their own prep (no PreparedDB cache), so the
+    # walls stay comparable with earlier slices' phase 4 and 5
+    oneshot = MiningEngine(device="cuda", prep_cache_bytes=0)
     runs = [("mushroom", True), ("mushroom", False), ("pumsb", True), ("kosarak", True)]
+    host = {}  # (dataset, min_count) -> the host PrePost miner's itemsets
     K.reset_launches()
     per_run = []
     for name, es in runs:
@@ -380,8 +554,8 @@ def main() -> int:
         before = K.launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = mine(rows, n_items, MineSpec(algorithm="hprepost", min_sup=sups[name], early_stop=es),
-                   device="cuda")
+        res = oneshot.submit(rows, n_items, MineSpec(algorithm="hprepost", min_sup=sups[name],
+                                                     early_stop=es))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -389,6 +563,7 @@ def main() -> int:
         t0 = time.perf_counter()
         ref = mine_prepost(rows, n_items, res.min_count)
         t_ref = time.perf_counter() - t0
+        host[name, res.min_count] = ref.itemsets
         if res.itemsets != ref.itemsets:
             raise AssertionError(f"{name} early_stop={es}: {len(res.itemsets)} itemsets vs "
                                  f"{len(ref.itemsets)} from the host PrePost miner")
@@ -397,7 +572,7 @@ def main() -> int:
             f"{len(res.itemsets)} itemsets == host mine_prepost ({t_ref:.1f}s); wall {wall:.3f}s, "
             f"peak device memory {peak / MB:.1f} MiB, launches {json.dumps(moved)}, stages {json.dumps(stages)}")
         per_run.append((name, es, moved))
-    total = K.launches()
+    total = K.launches()  # phase 4's launches; phase 6 adds its own below
     es_on = [m for n, e, m in per_run if e]
     es_off = [m for n, e, m in per_run if not e]
     if not all(m["nlist_intersect_es"] > 0 for m in es_on):
@@ -419,7 +594,7 @@ def main() -> int:
         spec = MineSpec(algorithm="hprepost", min_sup=sups[name], early_stop=es)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = mine(rows, n_items, spec, device="cuda")
+            res = oneshot.submit(rows, n_items, spec)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         spans, by_name = [], {}
@@ -447,9 +622,14 @@ def main() -> int:
         else:
             log(f"{head}, device time not measured (the profiler recorded none)")
 
+    # ---------------------------------------------------- 6. the resident engine
+    engine_launches = engine_phase(K, data, host)
+    log(f"engine: launches {json.dumps(engine_launches)}")
+
     kernels = []
     for kname, e in entries.items():
-        kernels.append(dict(name=kname, route="cuda", launches=total[kname], kernel_ms=e["ms"], **e))
+        kernels.append(dict(name=kname, route="cuda", launches=total[kname] + engine_launches[kname],
+                            kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Core of the paper's contribution: N-list frequent-itemset mining, on torch.
 
 Public API — mine through the front door ``repro_torch.mining``
-(re-exported here): ``MineSpec``, ``mine()``, and the ``register_miner``
-registry covering hprepost, prepost, prepost+ and the brute-force oracle.
+(re-exported here): ``MineSpec``, ``mine()`` / ``MiningEngine`` (one-shot
+vs. resident session), and the ``register_miner`` registry covering
+hprepost, prepost, prepost+, fpgrowth, apriori and the brute-force oracle.
 
 Building blocks (importable directly):
 
@@ -11,15 +12,19 @@ Building blocks (importable directly):
   - nlist: N-list intersection (vectorized subsume test)
   - prepost: single-shard PrePost/PrePost+ miner (host)
   - hprepost: the MapReduce miner on one torch device
-  - oracle / patterns: brute-force oracle, closed / maximal / top-rank-k
+  - fpgrowth / apriori / oracle: comparators (host)
+  - patterns: closed / maximal / top-rank-k post-passes
 """
+from repro_torch.core.apriori import mine_apriori
 from repro_torch.core.encoding import PAD, FList, build_flist, item_support, pad_transactions, rank_encode
+from repro_torch.core.fpgrowth import mine_fpgrowth
 from repro_torch.core.ppc import PPCTree, build_ppc
 from repro_torch.core.prepost import mine_prepost
 
 _MINING_EXPORTS = (
     "MineSpec",
     "MineResult",
+    "MiningEngine",
     "mine",
     "get_miner",
     "list_miners",
@@ -36,6 +41,8 @@ __all__ = [
     "PPCTree",
     "build_ppc",
     "mine_prepost",
+    "mine_fpgrowth",
+    "mine_apriori",
     *_MINING_EXPORTS,
 ]
 

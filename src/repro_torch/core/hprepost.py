@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -65,7 +66,8 @@ class HPrepostConfig:
     # host-side Apriori-closure pruning of doomed candidates before they ship,
     # plus in-kernel bound masking (the masked twin kernel). False = the
     # exact legacy path, bit-for-bit.
-    tune: bool = False  # KernelTuner plans; not ported yet (raises)
+    tune: bool = False  # resolve la_block through the persisted KernelTuner
+    # instead of the static field
 
     # knobs that pick *how* waves execute but never change what ``prepare``
     # builds — stripped (normalized to defaults) from prep cache and
@@ -243,6 +245,15 @@ class _HostRead:
         return self._host.numpy()
 
 
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``arr``'s memory, read-only arrays included: the
+    engine's fingerprint memo freezes the arrays it has hashed, and nothing
+    here writes through the tensor."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(arr)
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
@@ -256,26 +267,40 @@ class HPrepostMiner:
     present; pass ``device="cpu"`` for the plain PyTorch versions."""
 
     def __init__(self, device=None, config: HPrepostConfig = HPrepostConfig()):
-        if config.tune:
-            raise NotImplementedError(
-                "HPrepostConfig(tune=True): the KernelTuner is not ported yet; "
-                "it comes with the MiningEngine slice of the port"
-            )
         self.device = resolve_device(device)
         self.cfg = config
         self.D = 1  # data shards: one device holds the whole database
         self.last_stage_times: dict[str, float] = {}
-        # how many times each device stage ran over this miner's lifetime
+        # how many times each device stage ran over this miner's lifetime —
+        # the engine's shared-prep planning is asserted against these
         self.stage_counters: dict[str, int] = {
             "job1": 0, "job2": 0, "pack": 0, "f2": 0, "waves": 0
         }
-        # every wave runs one plan: the static config knobs, backend resolved
-        # for this device (per-shape plans come with the KernelTuner)
-        self.plan = tune.static_plan(
-            config.backend, config.la_block, config.early_stop, self.device.type,
-        )
-        self.backend = self.plan.backend
+        self.backend = tune.resolve_backend(config.backend, self.device.type)
         tune.check_backend(self.backend, torch.empty(0, device=self.device))
+        # KernelPlan resolution: the owning frontend/engine attaches a
+        # ``KernelTuner`` here; with ``cfg.tune`` off (or no tuner) plans
+        # come straight from the config knobs. Memoized per wave shape.
+        self.tuner = None
+        self._plan_cache: dict[tuple[int, int], tune.KernelPlan] = {}
+
+    def _kernel_plan(self, n_cands: int, width: int) -> tune.KernelPlan:
+        """Resolve the execution plan (concrete backend + ``la_block``) for a
+        wave of ``n_cands`` candidates over ``width``-slot N-lists."""
+        key = (tune._bucket(n_cands, 8, 512), tune._bucket(width, 8, 1024))
+        plan = self._plan_cache.get(key)
+        if plan is None:
+            cfg = self.cfg
+            if cfg.tune and self.tuner is not None:
+                plan = self.tuner.plan_for(
+                    backend=cfg.backend, B=n_cands, W=width, early_stop=cfg.early_stop,
+                )
+            else:
+                plan = tune.static_plan(
+                    cfg.backend, cfg.la_block, cfg.early_stop, self.device.type,
+                )
+            self._plan_cache[key] = plan
+        return plan
 
     # ---------------------------------------------------------------- prep
     def prepare(
@@ -300,8 +325,8 @@ class HPrepostMiner:
                 f"row count {R0} reaches the int32 exact-integer bound 2^31-1 "
                 f"of the CUDA kernels' counts"
             )
-        rows_p = np.require(rows, np.int32, ["C", "W"])
-        rows_t = torch.from_numpy(rows_p).to(dev)
+        rows_p = np.require(rows, np.int32, ["C"])
+        rows_t = _host_tensor(rows_p).to(dev)
 
         hist = item_histogram(rows_t, n_bins=n_items, backend=cfg.backend)
         supports = hist.cpu().numpy()
@@ -370,8 +395,8 @@ class HPrepostMiner:
     def _wave(self, planes, prev_state, idx, n_live: int, stop_count: int):
         """One wave on the device: the fused intersect + support kernel reads
         each live candidate's parent state and N-lists in place by ``idx``
-        — no gathered copies."""
-        plan = self.plan
+        — no gathered copies. Its plan comes per wave shape."""
+        plan = self._kernel_plan(idx.shape[1], planes.shape[2])
         return nlist_wave(
             planes, prev_state, _to_device(idx, self.device), n_live, backend=plan.backend,
             la_block=plan.la_block, early_stop=plan.early_stop, min_count=stop_count,

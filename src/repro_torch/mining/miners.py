@@ -1,11 +1,15 @@
-"""The registered miners: the paper's N-list miners behind one front door.
+"""The registered miners: every algorithm in the paper's comparison, one
+front door.
 
-Host baselines (prepost, prepost+, the brute-force oracle) are thin
-adapters over ``repro_torch.core``; ``hprepost`` wraps ``HPrepostMiner`` on
-a torch device.
+Host baselines (prepost, prepost+, fpgrowth, apriori, the brute-force
+oracle) are thin adapters over ``repro_torch.core``; ``hprepost`` wraps
+``HPrepostMiner`` on a torch device and keeps one resident instance per
+device config, so repeated mines through the same frontend (or a
+``MiningEngine``) reuse it.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -52,8 +56,10 @@ class _MinerBase:
 
     def _finish(
         self, itemsets, total, n_explicit, peak, stages, flist,
-        *, spec, min_count, n_rows, t0,
+        *, spec, min_count, n_rows, t0, prep_shared=False,
     ) -> MineResult:
+        """Assemble the enriched MineResult (pattern post-pass included) —
+        shared by the one-shot ``mine`` and the engine's shared-prep path."""
         stages = dict(stages) if stages else {"mine": time.perf_counter() - t0}
         if spec.patterns != "all":
             tp = time.perf_counter()
@@ -70,6 +76,7 @@ class _MinerBase:
             wall_time_s=time.perf_counter() - t0,
             stage_times_s=dict(stages),
             flist_items=flist,
+            prep_shared=prep_shared,
         )
 
     def mine(self, rows, n_items: int, spec: MineSpec) -> MineResult:
@@ -113,6 +120,32 @@ class PrepostPlusFrontend(PrepostFrontend):
     exhaustive = False
 
 
+@register_miner("fpgrowth")
+class FPGrowthFrontend(_MinerBase):
+    """Pointer FP-tree FP-growth (the paper's main comparator)."""
+
+    def _run(self, rows, n_items, min_count, spec):
+        from repro_torch.core.fpgrowth import mine_fpgrowth
+
+        out, stats = mine_fpgrowth(
+            rows, n_items, min_count, max_itemsets=spec.max_itemsets, max_k=spec.max_k
+        )
+        return out, len(out), len(out), stats["peak_bytes"], {}, None
+
+
+@register_miner("apriori")
+class AprioriFrontend(_MinerBase):
+    """Vertical-bitmap Apriori (the related-work family)."""
+
+    def _run(self, rows, n_items, min_count, spec):
+        from repro_torch.core.apriori import mine_apriori
+
+        out, stats = mine_apriori(
+            rows, n_items, min_count, max_itemsets=spec.max_itemsets, max_k=spec.max_k
+        )
+        return out, len(out), len(out), stats["peak_bytes"], {}, None
+
+
 @register_miner("bruteforce")
 class BruteForceFrontend(_MinerBase):
     """Transaction-scan oracle — small DBs only; anchors the parity tests."""
@@ -127,12 +160,26 @@ class BruteForceFrontend(_MinerBase):
 @register_miner("hprepost")
 class HPrepostFrontend(_MinerBase):
     """The paper's contribution on one torch device (CUDA by default; raises
-    when none is present unless ``device="cpu"`` is passed)."""
+    when none is present unless ``device="cpu"`` is passed).
+
+    One ``HPrepostMiner`` is kept per device-level config; specs that
+    differ only in threshold / ``max_k`` / patterns reuse it, so a resident
+    frontend serves repeated traffic on warm miners.
+    """
 
     exhaustive = True
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        self._miners: dict = {}
+        # a serving layer may reach miner_for from a prep thread while the
+        # caller thread serves other requests: one lock, one miner per
+        # device config
+        self._miners_lock = threading.Lock()
+        self.miners_built = 0
+        # the owning engine attaches its KernelTuner here; miners built by
+        # this frontend resolve tuned plans through it (cfg.tune permitting)
+        self.tuner = None
 
     def _device_config(self, spec: MineSpec):
         from repro_torch.core.hprepost import HPrepostConfig
@@ -150,10 +197,64 @@ class HPrepostFrontend(_MinerBase):
             tune=spec.tune,
         )
 
-    def _run(self, rows, n_items, min_count, spec):
+    def _prep_config(self, spec: MineSpec):
+        """The config subset ``prepare`` actually depends on — what prep
+        caches and snapshots key on. Execution-only knobs (``la_block``,
+        backend, early_stop, tune) are normalized away: a retune or backend
+        switch must keep serving warm preps."""
+        return self._device_config(spec).prep_key()
+
+    def miner_for(self, spec: MineSpec):
         from repro_torch.core.hprepost import HPrepostMiner
 
-        miner = HPrepostMiner(self.device, config=self._device_config(spec))
+        cfg = self._device_config(spec)
+        with self._miners_lock:
+            miner = self._miners.get(cfg)
+            if miner is None:
+                miner = self._miners[cfg] = HPrepostMiner(self.device, config=cfg)
+                self.miners_built += 1
+            miner.tuner = self.tuner
+        return miner
+
+    def _run(self, rows, n_items, min_count, spec):
+        miner = self.miner_for(spec)
         res = miner.mine(rows, n_items, min_count, max_k=spec.max_k)
         return (res.itemsets, res.total_count, res.n_explicit, res.peak_bytes,
                 dict(miner.last_stage_times), res.flist_items)
+
+    # -------------------------------------------------- two-phase (planned)
+    def prepare(self, rows, n_items: int, min_count_floor: int, spec: MineSpec,
+                *, need_waves: bool = True):
+        """Run the threshold-floor stages once -> ``(miner, PreparedDB)``.
+
+        ``spec`` selects the device-level config (and so the resident
+        miner); its own threshold is irrelevant here — every spec in the
+        group whose threshold is at least ``min_count_floor`` can be served
+        by ``mine_prepared`` from the returned PreparedDB."""
+        miner = self.miner_for(spec)
+        return miner, miner.prepare(
+            np.asarray(rows), n_items, min_count_floor, need_waves=need_waves
+        )
+
+    def mine_prepared(self, miner, prepared, spec: MineSpec, *,
+                      prep_stages=None, prep_shared: bool = False,
+                      t0: float | None = None) -> MineResult:
+        """Serve one spec from a shared ``PreparedDB`` (the k>2 waves only).
+
+        ``prep_stages`` folds the real prep times into this result's
+        ``stage_times_s`` — pass it on the one request that paid for prep;
+        the others keep 0.0 prep keys and ``prep_shared=True``."""
+        self._check_patterns(spec)
+        min_count = spec.resolve(prepared.n_rows)
+        if t0 is None:
+            t0 = time.perf_counter()
+        res = miner.mine_prepared(prepared, min_count, max_k=spec.max_k)
+        stages = dict(miner.last_stage_times)
+        if prep_stages:
+            stages.update(prep_stages)
+        return self._finish(
+            res.itemsets, res.total_count, res.n_explicit, res.peak_bytes,
+            stages, res.flist_items,
+            spec=spec, min_count=min_count, n_rows=prepared.n_rows, t0=t0,
+            prep_shared=prep_shared,
+        )

@@ -1,11 +1,32 @@
-"""repro_torch.mining.telemetry — request trace spans (:mod:`.trace`): span
-trees behind a ``failures``-style global attach/detach, exported as JSON or
-Chrome trace events. With no recorder attached a span site costs one
-global read. The reference's histograms and stats emitter come with the
-serving layer."""
+"""repro_torch.mining.telemetry — latency histograms and request trace spans.
+
+  - :mod:`.hist` — ``LatencyHistogram`` (fixed log buckets, mergeable,
+    thread-safe, exact counts, p50/p95/p99 from bucket edges) plus the
+    ``Registry`` of named histograms/counters/gauges (one per
+    ``MiningEngine``, at ``engine.telemetry``);
+  - :mod:`.trace` — per-request span trees behind a ``failures``-style
+    global attach/detach, exported as JSON or Chrome trace events. With no
+    recorder attached a span site costs one global read.
+
+The reference's periodic stats emitter comes with the serving layer.
+"""
+from .hist import (
+    DEFAULT_EDGES,
+    SCHEMA_VERSION,
+    Counter,
+    Gauge,
+    LatencyHistogram,
+    Registry,
+)
 from .trace import TraceRecorder, active, attach, attached, current_span, span
 
 __all__ = [
+    "DEFAULT_EDGES",
+    "SCHEMA_VERSION",
+    "Counter",
+    "Gauge",
+    "LatencyHistogram",
+    "Registry",
     "TraceRecorder",
     "active",
     "attach",

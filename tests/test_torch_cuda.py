@@ -245,3 +245,72 @@ def test_miner_on_card_matches_cpu(cuda, early_stop):
             assert g[k].dtype == c[k].dtype and g[k].tobytes() == c[k].tobytes(), k
         else:
             assert g[k] == c[k], k
+
+
+# ------------------------------------------------ the resident engine on the card
+def test_engine_sweep_on_card_matches_cpu_one_prepare_per_group(cuda):
+    import repro_torch.kernels as kernels
+    from repro_torch.mining import MineRequest, MineSpec, MiningEngine
+
+    rows, n_items = load("mushroom", scale=0.3)
+    other, _ = load("mushroom", scale=0.2)
+    spec = MineSpec(algorithm="hprepost")
+    fracs = [0.3, 0.2, 0.15]
+    gpu, cpu = MiningEngine(device=cuda), MiningEngine(device="cpu")
+    kernels.reset_launches()
+    got = gpu.submit_many([MineRequest(r, n_items, spec.with_(min_sup=f))
+                           for r in (rows, other) for f in fracs])
+    launches = kernels.launches()
+    want = cpu.submit_many([MineRequest(r, n_items, spec.with_(min_sup=f))
+                            for r in (rows, other) for f in fracs])
+    assert [r.itemsets for r in got] == [r.itemsets for r in want]
+    assert gpu.stats == cpu.stats and gpu.stats["prepares"] == 2
+    # B3 and B4 once per planned group, B2 on every threshold
+    assert launches["histogram"] == launches["cooccur"] == 2
+    waves = gpu.frontend("hprepost").miner_for(spec).stage_counters["waves"]
+    assert launches["nlist_intersect_es"] == waves >= len(got)
+    assert all(r.stage_times_s["planned_candidates"] > 0 for r in got)
+
+
+def test_engine_tuned_and_untuned_mines_identical_on_card(cuda, tmp_path):
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    rows, n_items = load("mushroom", scale=0.3)
+    for es in (True, False):
+        spec = MineSpec(algorithm="hprepost", min_sup=0.15, early_stop=es)
+        base = MiningEngine(device=cuda).submit(rows, n_items, spec)
+        cold = MiningEngine(device=cuda, snapshot_dir=str(tmp_path))
+        tuned = cold.submit(rows, n_items, spec.with_(tune=True))
+        assert tuned.itemsets == base.itemsets
+        assert cold.tuner.stats["trials"] > 0 and cold.tuner.stats["tuned"] > 0
+        warm = MiningEngine(device=cuda, snapshot_dir=str(tmp_path))
+        assert warm.submit(rows, n_items, spec.with_(tune=True)).itemsets == base.itemsets
+        assert warm.tuner.stats["trials"] == 0 and warm.tuner.stats["plan_hits"] > 0
+
+
+def test_engine_eviction_frees_device_memory(cuda):
+    import gc
+
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    small, n_small = load("mushroom", scale=0.5)
+    big, n_big = load("kosarak", scale=0.05)
+    spec_small = MineSpec(algorithm="hprepost", min_sup=0.15)
+    spec = spec_small.with_(min_sup=0.02)
+    gc.collect()
+    base = torch.cuda.memory_allocated(cuda)
+    ref = MiningEngine(device=cuda)
+    ref.submit(big, n_big, spec)
+    only_big = torch.cuda.memory_allocated(cuda)
+    prep_big = ref.cache_info()["bytes_in_use"]
+    del ref
+    gc.collect()
+    assert abs(torch.cuda.memory_allocated(cuda) - base) <= 1 << 20  # the engine held the prep
+    lru = MiningEngine(device=cuda, prep_cache_bytes=prep_big + 1)
+    lru.submit(small, n_small, spec_small)
+    assert torch.cuda.memory_allocated(cuda) > base
+    lru.submit(big, n_big, spec)  # evicts the small prep
+    gc.collect()
+    info = lru.cache_info()
+    assert info["evictions"] == 1 and info["entries"] == 1
+    assert abs(torch.cuda.memory_allocated(cuda) - only_big) <= 1 << 20

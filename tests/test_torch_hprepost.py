@@ -155,9 +155,20 @@ def test_entry_points_raise_without_cuda(monkeypatch, paper_db):
     assert HPrepostMiner("cpu").backend == "torch"
 
 
-def test_tune_and_cuda_backend_raise_on_cpu():
-    with pytest.raises(NotImplementedError, match="KernelTuner"):
-        HPrepostMiner("cpu", HPrepostConfig(tune=True))
+def test_tune_and_cuda_backend_raise_on_cpu(paper_db):
+    """``tune=True`` resolves its wave plans through an attached
+    KernelTuner on the CPU (plain versions timed) and mines the same
+    itemsets; the ``cuda`` backend still raises on the CPU."""
+    from repro_torch.mining.tune import KernelTuner
+
+    rows, n_items = paper_db
+    tuned = HPrepostMiner("cpu", HPrepostConfig(tune=True, candidate_unit=4))
+    tuned.tuner = KernelTuner(platform="cpu")
+    got = tuned.mine(rows, n_items, 2)
+    assert got.itemsets == HPrepostMiner("cpu", HPrepostConfig(candidate_unit=4)).mine(
+        rows, n_items, 2).itemsets
+    assert tuned.tuner.stats["tuned"] > 0 and tuned.tuner.stats["trials"] > 0
+    assert {p.source for p in tuned._plan_cache.values()} == {"tuned"}
     with pytest.raises(ValueError, match="not available"):
         HPrepostMiner("cpu", HPrepostConfig(backend="cuda"))
 

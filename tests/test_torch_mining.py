@@ -32,7 +32,8 @@ def _dbs():
 
 
 # the brute-force oracle only on the small databases
-CASES = [(a, db) for a in ("hprepost", "prepost", "prepost+", "bruteforce") for db in _dbs()
+CASES = [(a, db) for a in ("hprepost", "prepost", "prepost+", "fpgrowth", "apriori", "bruteforce")
+         for db in _dbs()
          if a != "bruteforce" or len(db[1]) <= 100]
 
 
@@ -96,6 +97,36 @@ def test_cli_one_shot_matches_reference(capsys):
     assert "hprepost:" in capsys.readouterr().out
     got = tmain(args + ["--device", "cpu", "--no-early-stop", "--algo", "prepost"])
     assert got.itemsets == want.itemsets
+
+
+def test_cli_sweep_matches_reference(capsys):
+    import re
+
+    from repro.launch.mine import main as jmain
+    from repro_torch.launch.mine import main as tmain
+
+    args = ["--dataset", "mushroom", "--scale", "0.1", "--sweep", "0.4,0.3,0.2"]
+    got = tmain(args + ["--device", "cpu"])
+    tout = capsys.readouterr().out
+    want = jmain(args + ["--backend", "jnp"])
+    jout = capsys.readouterr().out
+    assert [r.itemsets for r in got] == [r.itemsets for r in want]
+    # the same report line for line, [shared prep] markers included, but the clocks
+    untimed = [re.sub(r" in [0-9.]+s ", " ", line) for line in (tout, jout)]
+    assert untimed[0] == untimed[1] and tout.count("[shared prep]") == 2
+
+
+def test_cli_tune_cold_then_warm(tmp_path):
+    from repro_torch.launch.mine import main as tmain
+
+    args = ["--dataset", "chess", "--scale", "0.05", "--min-sup", "0.6", "--device", "cpu",
+            "--tune", "--snapshot-dir", str(tmp_path)]
+    cold = tmain(args + ["--expect-plans", "cold"])
+    warm = tmain(args + ["--expect-plans", "warm"])  # raises SystemExit unless zero trials
+    assert warm.itemsets == cold.itemsets
+    assert warm.service_stats["prep_source"] == "snapshot"
+    with pytest.raises(SystemExit):
+        tmain(args + ["--expect-plans", "cold"])  # warm plans are no cold tune
 
 
 def _port_modules():

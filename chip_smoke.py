@@ -27,9 +27,24 @@ Phases, in order; any failure raises and exits non-zero:
      start of the kosarak sweep in a fresh engine (no prepare, no prep
      launch); the kernel tuner cold, then warm with zero trials; and an LRU
      eviction that returns the evicted prep's device memory. Every itemsets
-     dict must equal the host PrePost miner's.
-Then one JSON line describing the kernels (launches: phases 4 and 6), and
-last the device line.
+     dict must equal the host PrePost miner's;
+  7. the resident service: one ``MiningService(device="cuda")`` takes, from
+     three producer threads inside one batch window, the mushroom sweep at
+     0.3/0.2/0.15, pumsb at 0.15, kosarak at 0.02/0.01 and one host apriori
+     on mushroom at 0.3 — three device groups, each prepared once (one B3
+     and one B4 launch per group), at least one prepare overlapped with an
+     earlier group's waves on the scheduler's prep stream; every answer
+     equals the host PrePost miner's. Then a request past its deadline
+     (``DeadlineExceeded``, no launch), a burst past ``max_queue_depth=1``
+     (``Overloaded``), a chaos-crashed batch followed by one that serves, a
+     second service warm-starting the kosarak sweep from the first one's
+     snapshots (0 prepares), a trace and a stats emitter. Last, the same
+     load with overlap on and off (on, off, off, on; unprofiled, then under
+     torch.profiler): batch walls, the ``scheduler.prep_wait_s`` p50, the
+     device idle share and whether device work on the prep stream and on
+     the wave stream ran at the same time.
+Then one JSON line describing the kernels (launches: phases 4, 6 and 7),
+and last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
 either it exits non-zero and prints no result.
@@ -37,11 +52,13 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import gc
+import io
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -179,22 +196,26 @@ def wave_bytes(planes, state, idx, n_live, stop=None):
     return n, int(y_nz.sum())
 
 
+def host_answer(data, host, name, min_count):
+    """The host PrePost miner's itemsets for (dataset, min_count), memoized
+    in ``host``."""
+    from repro_torch.core.prepost import mine_prepost
+
+    if (name, min_count) not in host:
+        rows, n_items = data[name]
+        host[name, min_count] = mine_prepost(rows, n_items, min_count).itemsets
+    return host[name, min_count]
+
+
 def engine_phase(K, data, host) -> dict[str, int]:
     """Phase 6: the resident ``MiningEngine`` on the card (see the module
     docstring). ``host`` maps (dataset, min_count) to the host PrePost
     miner's itemsets, filled by phase 4 and here. -> this phase's launches."""
-    from repro_torch.core.prepost import mine_prepost
     from repro_torch.mining import MineSpec, MiningEngine
-
-    def host_answer(name, min_count):
-        if (name, min_count) not in host:
-            rows, n_items = data[name]
-            host[name, min_count] = mine_prepost(rows, n_items, min_count).itemsets
-        return host[name, min_count]
 
     def check_host(what, name, results):
         for r in results:
-            want = host_answer(name, r.min_count)
+            want = host_answer(data, host, name, r.min_count)
             if r.itemsets != want:
                 raise AssertionError(f"{what} at min_count {r.min_count}: {len(r.itemsets)} itemsets "
                                      f"vs {len(want)} from the host PrePost miner")
@@ -333,6 +354,321 @@ def engine_phase(K, data, host) -> dict[str, int]:
     got = K.launches()
     if not all(got.values()):
         raise AssertionError(f"a kernel was not launched in phase 6: {got}")
+    return got
+
+
+# the load phase 7 serves: one list per producer thread of (dataset, min_sup,
+# algorithm); three device groups on distinct databases and one host request
+SERVICE_LOAD = [
+    [("mushroom", 0.3, "hprepost"), ("mushroom", 0.2, "hprepost"), ("mushroom", 0.15, "hprepost"),
+     ("mushroom", 0.3, "apriori")],
+    [("pumsb", 0.15, "hprepost")],
+    [("kosarak", 0.02, "hprepost"), ("kosarak", 0.01, "hprepost")],
+]
+
+
+def serve_load(svc, data):
+    """Submit ``SERVICE_LOAD`` from three producer threads inside one batch
+    window and wait for every answer. The threads are released together
+    and each makes its first submit after the previous thread's, so the
+    groups arrive, and are served, in the load's order: the small preps
+    first, kosarak's last, behind waves it can hide under. -> ([(dataset,
+    algorithm, MineResult)] in load order, wall seconds from the release to
+    the last answer)."""
+    from repro_torch.mining import MineSpec
+
+    spec = MineSpec(algorithm="hprepost")
+    start = threading.Barrier(len(SERVICE_LOAD) + 1)
+    turn = [threading.Event() for _ in range(len(SERVICE_LOAD) + 1)]
+    turn[0].set()
+    futs = [[None] * len(p) for p in SERVICE_LOAD]
+    errors = []
+
+    def producer(i):
+        start.wait()
+        try:
+            turn[i].wait(10)
+            for j, (name, frac, algo) in enumerate(SERVICE_LOAD[i]):
+                rows, n_items = data[name]
+                futs[i][j] = svc.submit(rows, n_items, spec.with_(algorithm=algo, min_sup=frac))
+                turn[i + 1].set()
+        except BaseException as e:  # surfaced below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(i,)) for i in range(len(SERVICE_LOAD))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(60)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a producer failed or hung: {errors}")
+    out = [(name, algo, f.result(timeout=600))
+           for plan, fs in zip(SERVICE_LOAD, futs) for (name, _, algo), f in zip(plan, fs)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def union_us(spans) -> list[tuple[float, float]]:
+    """Merge (start, end) intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def device_timeline(prof) -> dict:
+    """From a torch.profiler run: device busy ms (the union of kernel, copy
+    and memset intervals) and, when prep (B3/B4) and waves (B1/B2) ran on
+    different streams, the ms in which the two streams both had device
+    work. Read from the profiler's Chrome trace, whose device events carry
+    their stream."""
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            tr = json.load(f)
+    events = tr["traceEvents"] if isinstance(tr, dict) else tr
+    ivs = [(e["name"], (e.get("args") or {}).get("stream", e.get("tid")), float(e["ts"]),
+            float(e["ts"]) + float(e.get("dur", 0.0)))
+           for e in events
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(b - a for a, b in union_us([(a, b) for _, _, a, b in ivs])) / 1e3
+    prep = {s for n, s, _, _ in ivs if "hist_kernel" in n or "cooc_mma_kernel" in n}
+    wave = {s for n, s, _, _ in ivs if "wave_kernel" in n}
+    out = {"busy_ms": busy, "device_events": len(ivs), "prep_streams": sorted(map(str, prep)),
+           "wave_streams": sorted(map(str, wave)), "concurrent_ms": None}
+    if prep and wave and not prep & wave:
+        up = union_us([(a, b) for _, s, a, b in ivs if s in prep])
+        uw = union_us([(a, b) for _, s, a, b in ivs if s in wave])
+        both, i, j = 0.0, 0, 0
+        while i < len(up) and j < len(uw):
+            lo, hi = max(up[i][0], uw[j][0]), min(up[i][1], uw[j][1])
+            both += max(0.0, hi - lo)
+            if up[i][1] < uw[j][1]:
+                i += 1
+            else:
+                j += 1
+        out["concurrent_ms"] = both / 1e3
+    return out
+
+
+def service_phase(K, data, host) -> dict[str, int]:
+    """Phase 7: the resident ``MiningService`` on the card (see the module
+    docstring). -> this phase's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fault import failures
+    from repro_torch.mining import MineSpec, MiningEngine, MiningService
+    from repro_torch.mining.service import DeadlineExceeded, Overloaded
+    from repro_torch.mining.telemetry import Registry, StatsEmitter, TraceRecorder, trace
+
+    spec = MineSpec(algorithm="hprepost")
+    n_groups = len(SERVICE_LOAD)
+
+    def moved_since(before):
+        return {k: v - before[k] for k, v in K.launches().items()}
+
+    def check_host(what, results):
+        for name, algo, r in results:
+            want = host_answer(data, host, name, r.min_count)
+            if r.itemsets != want:
+                raise AssertionError(f"{what}: {algo} {name} at min_count {r.min_count}: "
+                                     f"{len(r.itemsets)} itemsets vs {len(want)} from the host PrePost miner")
+
+    def waves(svc):
+        return svc.engine.frontend("hprepost").miner_for(spec).stage_counters["waves"]
+
+    def counts(svc):
+        """The counters one batch moves: service, engine and scheduler."""
+        return {"batches": svc.stats["batches"], "requests": svc.stats["requests"],
+                "prepares": svc.engine.stats["prepares"], "waves": waves(svc),
+                **{k: svc.scheduler.stats[k] for k in ("device_groups", "host_requests",
+                                                       "overlapped_prepares")}}
+
+    def check_batch(what, svc, results, c0, moved, overlap=True):
+        """One batch of the load: all of it in one batch, three groups each
+        prepared once (B3 and B4 once a group, B2 on every wave, B1 never),
+        every group after the first prepared ahead when overlapping, every
+        prep built, every answer the host's. -> the counters' deltas."""
+        d = {k: v - c0[k] for k, v in counts(svc).items()}
+        want = {"batches": 1, "requests": sum(map(len, SERVICE_LOAD)), "prepares": n_groups,
+                "waves": d["waves"], "device_groups": n_groups, "host_requests": 1,
+                "overlapped_prepares": n_groups - 1 if overlap else 0}
+        if d != want:
+            raise AssertionError(f"{what}: counters moved {d}, expected {want}")
+        if (moved["histogram"] != n_groups or moved["cooccur"] != n_groups
+                or moved["nlist_intersect_es"] != d["waves"] or moved["nlist_intersect"]):
+            raise AssertionError(f"{what}: launches {moved} for {n_groups} groups and {d['waves']} waves")
+        sources = [r.service_stats.get("prep_source") for _, algo, r in results if algo == "hprepost"]
+        if sources != ["built"] * len(sources):
+            raise AssertionError(f"{what}: prep sources {sources}")
+        check_host(what, results)
+        return d
+
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as snap:
+        # 7a. the load on a fresh service, traced, with a stats emitter
+        rec, sink = TraceRecorder(), io.StringIO()
+        svc = MiningService(device="cuda", snapshot_dir=snap, batch_window_s=0.05)
+        emitter = StatsEmitter(svc.stats, sink, interval_s=0.05).start()
+        before, c0 = K.launches(), counts(svc)
+        with trace.attached(rec):
+            results, wall = serve_load(svc, data)
+        moved = moved_since(before)
+        check_batch("service batch", svc, results, c0, moved)
+        sch = dict(svc.scheduler.stats)
+        spans = {}
+        for ev in rec.to_chrome():
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+        log(f"service batch (7 requests from 3 threads, 1 batch): wall {wall:.4f}s; "
+            f"group.classify (fingerprints) {sum(spans['group.classify']):.1f}ms, "
+            f"group.prep waits {[round(x, 1) for x in spans['group.prep']]}ms, "
+            f"group.serve {[round(x, 1) for x in spans['group.serve']]}ms; scheduler {json.dumps(sch)}; "
+            f"launches {json.dumps(moved)}; prep sources "
+            f"{[(n, r.service_stats.get('prep_source'), r.service_stats.get('prep_overlapped')) for n, _, r in results]}; "
+            f"itemsets {[len(r.itemsets) for _, _, r in results]} == host mine_prepost")
+
+        # observability: a valid Chrome trace, periodic stats snapshots
+        deadline = time.monotonic() + 5
+        while emitter.stats["periodic"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        emitter.stop()
+        lines = [json.loads(line) for line in sink.getvalue().splitlines()]
+        tpath = Path(snap) / "trace.json"
+        n_ev = rec.save_chrome(str(tpath))
+        events = json.loads(tpath.read_text())
+        if (emitter.stats["periodic"] < 2 or len(lines) != emitter.stats["emits"] or not events
+                or n_ev != len(rec) or any(not {"name", "ph", "ts"} <= set(e) for e in events)):
+            raise AssertionError(f"observability: emitter {emitter.stats}, {len(lines)} lines, "
+                                 f"{n_ev} trace events of {len(rec)} spans")
+        hists = lines[-1]["stats"]["histograms"]
+        log(f"service observability: {n_ev} Chrome trace events, {emitter.stats['periodic']} periodic "
+            f"+ 1 final stats snapshots; queue_wait p50 "
+            f"{hists['admission.queue_wait_s']['p50_s'] * 1e3:.3f}ms, prep_wait p50 "
+            f"{hists['scheduler.prep_wait_s']['p50_s'] * 1e3:.3f}ms, request p50 "
+            f"{hists['service.request_s']['p50_s'] * 1e3:.1f}ms")
+
+        # 7b. QoS and typed errors on the card
+        rows, n_items = data["mushroom"]
+        before = K.launches()
+        err = svc.submit(rows, n_items, spec.with_(min_sup=0.2, deadline_s=1e-6)).exception(timeout=60)
+        moved = moved_since(before)
+        if not isinstance(err, DeadlineExceeded) or any(moved.values()):
+            raise AssertionError(f"deadline: {err!r}, launches {moved}")
+        with failures.installed(failures.ChaosInjector().arm("service.serve")):
+            crashed = svc.submit(rows, n_items, spec.with_(min_sup=0.3)).exception(timeout=60)
+        # the next batch serves: mushroom at 0.15 with early stop off, from the
+        # cached prep (early stop is execution-only), so its waves run B1
+        before = K.launches()
+        after = svc.submit(rows, n_items, spec.with_(min_sup=0.15, early_stop=False)).result(timeout=600)
+        b1 = moved_since(before)
+        check_host("after the crashed batch", [("mushroom", "hprepost", after)])
+        if (not isinstance(crashed, failures.SimulatedFailure) or svc.stats["worker_restarts"] != 1
+                or after.service_stats["prep_source"] != "cache" or not b1["nlist_intersect"]
+                or b1["nlist_intersect_es"] or b1["histogram"]):
+            raise AssertionError(f"chaos: {crashed!r}, service {dict(svc.stats)}, then "
+                                 f"{after.service_stats} with launches {b1}")
+        svc.close()
+        with MiningService(device="cuda", batch_window_s=0.0, max_queue_depth=1) as burst:
+            # the burst lands while the worker serves a kosarak mine (its
+            # fingerprint alone takes a few hundred ms): one fits the queue
+            busy = burst.submit(*data["kosarak"], spec.with_(min_sup=0.01))
+            deadline = time.monotonic() + 10
+            while burst._q.depth and time.monotonic() < deadline:
+                time.sleep(0.001)
+            futs = [burst.submit(rows, n_items, spec.with_(min_sup=0.3)) for _ in range(6)]
+            outs = [f.exception(timeout=600) or f.result() for f in futs]
+            check_host("burst", [("kosarak", "hprepost", busy.result(timeout=600))])
+        over = [o for o in outs if isinstance(o, Overloaded)]
+        served = [o for o in outs if not isinstance(o, BaseException)]
+        if not over or not served or len(over) + len(served) != len(outs):
+            raise AssertionError(f"overload: {outs}")
+        check_host("burst", [("mushroom", "hprepost", r) for r in served])
+        log(f"service QoS: deadline passed -> DeadlineExceeded with launches {json.dumps(moved)}; "
+            f"a chaos-crashed batch -> {type(crashed).__name__}, the next batch served mushroom@0.15 "
+            f"with early stop off from the cached prep ({len(after.itemsets)} itemsets == host, "
+            f"launches {json.dumps(b1)}); a burst of 6 at max_queue_depth=1 -> "
+            f"{len(served)} served, {len(over)} Overloaded")
+
+        # 7c. warm start: a second service on the first one's snapshots
+        before = K.launches()
+        with MiningService(device="cuda", snapshot_dir=snap, batch_window_s=0.05) as warm:
+            t0 = time.perf_counter()
+            res = [f.result(timeout=600) for f in warm.sweep(*data["kosarak"], spec, [0.02, 0.01])]
+            warm_wall = time.perf_counter() - t0
+            prepares, info = warm.engine.stats["prepares"], warm.engine.cache_info()
+        moved = moved_since(before)
+        if (prepares != 0 or moved["histogram"] or moved["cooccur"]
+                or any(r.service_stats["prep_source"] != "snapshot" for r in res)):
+            raise AssertionError(f"warm start: {prepares} prepares, cache {info}, launches {moved}")
+        check_host("warm start", [("kosarak", "hprepost", r) for r in res])
+        log(f"service warm start: kosarak sweep on a second service over the first one's snapshots "
+            f"{warm_wall:.4f}s, 0 prepares, snapshot hits {info['snapshot_hits']}, launches {json.dumps(moved)}")
+
+    # 7d. overlap on against off, on one resident service (its fingerprint
+    # memo, miners and prep stream warm, as a long-lived service's are): the
+    # prep cache is cleared before each batch so that every group prepares,
+    # and each batch gets a fresh latency registry. After one warm-up batch,
+    # on, off, off, on unprofiled, then under torch.profiler, then again
+    # unprofiled with the interpreter's thread switch interval at 0.1 ms
+    # (from 5 ms): the serving and prep threads share the GIL
+    eng = MiningEngine(device="cuda")
+    svc = MiningService(eng, batch_window_s=0.05)
+    per_batch = {}
+    default_switch = sys.getswitchinterval()
+    runs = [(None, False, default_switch)]
+    runs += [(ov, False, default_switch) for ov in (True, False, False, True)]
+    runs += [(ov, True, default_switch) for ov in (True, False, False, True)]
+    runs += [(ov, False, 1e-4) for ov in (True, False, False, True)]
+    try:
+        for overlap, profiled, switch in runs:
+            warmup = overlap is None
+            svc.scheduler.overlap = True if warmup else overlap
+            svc.engine.clear_prep_cache()
+            svc.engine.telemetry = svc.scheduler.telemetry = Registry()
+            sys.setswitchinterval(switch)
+            before, c0 = K.launches(), counts(svc)
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    results, wall = serve_load(svc, data)
+            else:
+                results, wall = serve_load(svc, data)
+            sys.setswitchinterval(default_switch)
+            moved = moved_since(before)
+            what = ("warm-up" if warmup else f"overlap={overlap}") + f" profiled={profiled} " \
+                f"switch={switch * 1e3:g}ms"
+            check_batch(what, svc, results, c0, moved, overlap=svc.scheduler.overlap)
+            per_batch.setdefault(json.dumps(moved, sort_keys=True), []).append(what)
+            h = svc.engine.telemetry.snapshot()["histograms"]
+            line = (f"service {what}: batch wall {wall * 1e3:.2f}ms, prep_wait p50 "
+                    f"{h['scheduler.prep_wait_s']['p50_s'] * 1e3:.3f}ms (sum "
+                    f"{h['scheduler.prep_wait_s']['sum_s'] * 1e3:.2f}), prep sum "
+                    f"{h['engine.prep_s']['sum_s'] * 1e3:.2f}ms, serve sum "
+                    f"{h['scheduler.serve_s']['sum_s'] * 1e3:.2f}ms")
+            if profiled:
+                tl = device_timeline(prof)
+                if tl["busy_ms"] <= 0:
+                    line += ", device time not measured (the profiler recorded none)"
+                else:
+                    line += (f", device busy {tl['busy_ms']:.2f}ms, idle share "
+                             f"{1 - tl['busy_ms'] / (wall * 1e3):.3f}, streams prep {tl['prep_streams']} "
+                             f"wave {tl['wave_streams']}, both streams busy at once "
+                             + ("n/a (one stream)" if tl["concurrent_ms"] is None
+                                else f"{tl['concurrent_ms']:.3f}ms"))
+            log(line)
+    finally:
+        sys.setswitchinterval(default_switch)
+        svc.close()
+    if len(per_batch) != 1:
+        raise AssertionError(f"launch counts differ between overlap on and off: {per_batch}")
+    got = K.launches()
+    if not all(got.values()):
+        raise AssertionError(f"a kernel was not launched in phase 7: {got}")
     return got
 
 
@@ -626,10 +962,14 @@ def main() -> int:
     engine_launches = engine_phase(K, data, host)
     log(f"engine: launches {json.dumps(engine_launches)}")
 
+    # ---------------------------------------------------- 7. the resident service
+    service_launches = service_phase(K, data, host)
+    log(f"service: launches {json.dumps(service_launches)}")
+
     kernels = []
     for kname, e in entries.items():
-        kernels.append(dict(name=kname, route="cuda", launches=total[kname] + engine_launches[kname],
-                            kernel_ms=e["ms"], **e))
+        n = total[kname] + engine_launches[kname] + service_launches[kname]
+        kernels.append(dict(name=kname, route="cuda", launches=n, kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -101,6 +101,17 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``. Under a lock: the service's prep thread
+    and its serving thread launch kernels at the same time, and a bare
+    ``+=`` on a function attribute can lose an update between them."""
+    with _count_lock:
+        fn.launches += 1
+
+
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

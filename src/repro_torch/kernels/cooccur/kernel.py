@@ -30,7 +30,7 @@ def cooccur_cuda(rows: torch.Tensor, weights: torch.Tensor, *, n_items: int) -> 
         rc = lib.cooccur_launch(_cuda.ptr(rows), _cuda.ptr(weights), R, L, n_items,
                                 _cuda.ptr(out), _cuda.stream_of(rows))
     _cuda.check_launch(rc, "cooccur")
-    cooccur_cuda.launches += 1
+    _cuda.count_launch(cooccur_cuda)
     return out
 
 

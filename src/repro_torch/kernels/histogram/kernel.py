@@ -30,7 +30,7 @@ def histogram_cuda(rows: torch.Tensor, weights: torch.Tensor, *, n_bins: int) ->
         rc = lib.histogram_launch(_cuda.ptr(rows), _cuda.ptr(weights), R, L, n_bins,
                                   _cuda.ptr(out), _cuda.stream_of(rows))
     _cuda.check_launch(rc, "histogram")
-    histogram_cuda.launches += 1
+    _cuda.count_launch(histogram_cuda)
     return out
 
 

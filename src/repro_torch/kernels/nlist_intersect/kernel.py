@@ -48,10 +48,7 @@ def _launch(masked, ptrs, B, La, Ly, n_live, la_block, min_count, device):
             int(min_count), out.data_ptr(), sup.data_ptr(), _cuda.stream_of(out),
         )
     _cuda.check_launch(rc, "nlist_intersect_es" if masked else "nlist_intersect")
-    if masked:
-        nlist_intersect_es_cuda.launches += 1
-    else:
-        nlist_intersect_cuda.launches += 1
+    _cuda.count_launch(nlist_intersect_es_cuda if masked else nlist_intersect_cuda)
     return out, sup
 
 

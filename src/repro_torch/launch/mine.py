@@ -23,10 +23,23 @@ fails the run unless it searched (cold) or made zero trials (warm):
 
     PYTHONPATH=src python -m repro_torch.launch.mine --tune --snapshot-dir /tmp/snaps \\
         --dataset mushroom --expect-plans cold
+
+``--serve`` routes the request load through the resident ``MiningService``
+(concurrent submits, batching window, cross-group overlap with each prepare
+on its own CUDA stream) instead of blocking per call; with
+``--expect-warm`` the run fails unless it was served entirely from
+snapshots. ``--stats`` dumps the service's operator snapshot,
+``--stats-interval S`` runs a background stats emitter (``--stats-out``),
+``--trace FILE`` saves the request span trees as Chrome trace events, and
+``--expect-obs`` fails the run unless all three delivered:
+
+    PYTHONPATH=src python -m repro_torch.launch.mine --serve --snapshot-dir /tmp/snaps \\
+        --dataset mushroom --sweep 0.4,0.3,0.2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 from repro_torch.data import corpus, synth
 from repro_torch.mining import MineSpec, MiningEngine, list_miners
@@ -53,6 +66,142 @@ def _report_plans(engine, expect: str | None) -> None:
         )
 
 
+def _verify_obs(args, snap, emitter, rec) -> None:
+    """``--expect-obs``: fail unless the run emitted live periodic stats
+    snapshots (not just the final one), wrote a loadable Chrome trace-event
+    file, and populated the queue-wait / prep / mine latency histograms in
+    the service stats snapshot."""
+    if emitter is None or emitter.stats["periodic"] < 2:
+        periodic = emitter.stats["periodic"] if emitter is not None else 0
+        raise SystemExit(
+            f"expected >=2 periodic stats snapshots during the run but the "
+            f"emitter delivered {periodic} (interval={args.stats_interval}s); "
+            f"emitter stats = {emitter.stats if emitter else None}"
+        )
+    with open(args.trace) as f:
+        events = json.load(f)
+    bad = [e for e in events if not ("name" in e and "ph" in e and "ts" in e)]
+    if not events or bad:
+        raise SystemExit(
+            f"{args.trace} is not a valid Chrome trace-event list: "
+            f"{len(events)} events, {len(bad)} malformed"
+        )
+    if rec is not None and len(rec) != len(events):
+        raise SystemExit(
+            f"trace file lost spans: recorder holds {len(rec)}, "
+            f"file holds {len(events)}"
+        )
+    hists = (snap or {}).get("histograms", {})
+    for key in ("admission.queue_wait_s", "engine.prep_s", "engine.mine_s",
+                "service.request_s"):
+        h = hists.get(key)
+        if not h or h.get("count", 0) < 1 or "p95_s" not in h:
+            raise SystemExit(
+                f"expected a populated latency histogram {key!r} in "
+                f"stats()['histograms'] but found {h!r} "
+                f"(present: {sorted(hists)})"
+            )
+    print(
+        f"observability verified: {emitter.stats['periodic']} periodic "
+        f"snapshot(s), {len(events)} trace event(s), "
+        f"{len(hists)} live histogram(s)"
+    )
+
+
+def _serve(args, rows, n_items: int, name: str, spec: MineSpec):
+    """Serve the request load through a resident MiningService: the sweep
+    (or the single threshold) submitted concurrently, plus one
+    host-algorithm request riding the same batch on a worker thread.
+    ``--stats-interval`` rides a background ``StatsEmitter`` over
+    ``svc.stats`` for the whole serve; ``--trace`` attaches a
+    ``TraceRecorder`` and saves the request span trees as Chrome trace
+    events after the drain."""
+    import contextlib
+
+    from repro_torch.mining.service import MiningService
+    from repro_torch.mining.telemetry import StatsEmitter, TraceRecorder, trace
+
+    fracs = [float(s) for s in args.sweep.split(",")] if args.sweep else [args.min_sup]
+    rec = TraceRecorder() if args.trace else None
+    emitter = None
+    snap = None
+    with contextlib.ExitStack() as stack:
+        svc = stack.enter_context(MiningService(
+            device=args.device, snapshot_dir=args.snapshot_dir, batch_window_s=0.05
+        ))
+        if args.stats_interval:
+            emitter = stack.enter_context(StatsEmitter(
+                svc.stats, args.stats_out, interval_s=args.stats_interval
+            ))
+        if rec is not None:
+            stack.enter_context(trace.attached(rec))
+        futures = svc.sweep(rows, n_items, spec, fracs)
+        labels = [f"min_sup={f:g}" for f in fracs]
+        if spec.algorithm != "apriori":
+            futures.append(svc.submit(
+                rows, n_items, spec.with_(algorithm="apriori", min_sup=min(fracs))
+            ))
+            labels.append("apriori (host pool)")
+        svc.drain()
+        results = [f.result() for f in futures]
+        engine = svc.engine
+        print(
+            f"{name}: {len(rows)} tx served as {svc.stats['batches']} batch(es), "
+            f"{svc.stats['requests']} concurrent requests"
+        )
+        for label, res in zip(labels, results):
+            s = res.service_stats
+            extras = [f"queue {s.get('queue_time_s', 0) * 1e3:.1f}ms"]
+            if "prep_source" in s:
+                extras.append(f"prep={s['prep_source']}")
+            if s.get("prep_overlapped"):
+                extras.append("overlapped")
+            print(f"  {label} -> {res.summary()} [{', '.join(extras)}]")
+        info = engine.cache_info()
+        print(
+            f"engine: prepares={engine.stats['prepares']} "
+            f"snapshot_hits={info['snapshot_hits']} "
+            f"scheduler={svc.scheduler.stats}"
+        )
+        if args.expect_warm:
+            # per-request attribution, not just aggregate counters:
+            # stats["prepares"] counts group builds only, so a degraded
+            # per-request rebuild would slip past it — any hprepost result
+            # whose prep was "built" means the warm start did not hold
+            built = [
+                label for label, res in zip(labels, results)
+                if res.algorithm == "hprepost"
+                and res.service_stats.get("prep_source") not in ("snapshot", "cache")
+            ]
+            if (engine.stats["prepares"] != 0 or info["snapshot_hits"] < 1
+                    or info["snapshot_misses"] != 0 or built):
+                raise SystemExit(
+                    f"expected a snapshot warm start but prepares="
+                    f"{engine.stats['prepares']}, snapshot_hits={info['snapshot_hits']}, "
+                    f"snapshot_misses={info['snapshot_misses']}, "
+                    f"non-snapshot requests={built} "
+                    f"(snapshot store: {info.get('snapshot_store')})"
+                )
+            print("warm start verified: zero prep stages, served from snapshots")
+        if args.tune or args.expect_plans:
+            _report_plans(engine, args.expect_plans)
+        if args.stats or args.expect_obs:
+            snap = svc.stats()
+        if args.stats:
+            print(json.dumps(snap, indent=2, sort_keys=True, default=str))
+    if rec is not None:
+        n_ev = rec.save_chrome(args.trace)
+        print(f"trace: {n_ev} span event(s) -> {args.trace}")
+    if emitter is not None:
+        print(
+            f"stats emitter: {emitter.stats['periodic']} periodic + 1 final "
+            f"snapshot(s) -> {args.stats_out}, dropped={emitter.stats['dropped']}"
+        )
+    if args.expect_obs:
+        _verify_obs(args, snap, emitter, rec)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="hprepost", choices=list_miners())
@@ -72,6 +221,46 @@ def main(argv=None):
     ap.add_argument(
         "--snapshot-dir", default=None, metavar="DIR",
         help="persistent PreparedDB store: spill prep here and warm-start from it",
+    )
+    ap.add_argument(
+        "--serve", action="store_true",
+        help="route requests through the resident MiningService "
+             "(concurrent submits, batching window, cross-group overlap)",
+    )
+    ap.add_argument(
+        "--expect-warm", action="store_true",
+        help="with --serve: fail unless the whole load was served from "
+             "snapshots with zero prep stages",
+    )
+    ap.add_argument(
+        "--stats", action="store_true",
+        help="with --serve: after serving, dump the full operator stats "
+             "snapshot as JSON (admission/shed/deadline counters and "
+             "per-layer drill-down)",
+    )
+    ap.add_argument(
+        "--stats-interval", type=float, default=0.0, metavar="S",
+        help="with --serve: run a background stats emitter for the whole "
+             "serve, writing one JSON-lines snapshot of the full operator "
+             "stats (latency histograms included) every S seconds",
+    )
+    ap.add_argument(
+        "--stats-out", default="-", metavar="FILE",
+        help="sink for --stats-interval snapshots: a file path (appended, "
+             "parent dirs created) or '-' for stderr (the default)",
+    )
+    ap.add_argument(
+        "--trace", default=None, metavar="FILE",
+        help="with --serve: record per-request span trees (submit -> "
+             "admission wait -> classify -> prep -> waves -> reduce -> "
+             "resolve) and save them as Chrome trace events",
+    )
+    ap.add_argument(
+        "--expect-obs", action="store_true",
+        help="with --serve --stats-interval --trace: fail unless >=2 "
+             "periodic snapshots were emitted while serving, the trace "
+             "file is a valid Chrome trace-event list, and the queue-wait "
+             "/ prep / mine histograms are populated",
     )
     ap.add_argument(
         "--backend", default="auto", choices=registered_backends(),
@@ -99,6 +288,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.expect_plans and not args.tune:
         ap.error("--expect-plans needs --tune")
+    if args.expect_warm and not args.serve:
+        ap.error("--expect-warm checks the service's warm start; use it with --serve")
+    if args.stats and not args.serve:
+        ap.error("--stats dumps the service snapshot; use it with --serve")
+    if (args.stats_interval or args.trace) and not args.serve:
+        ap.error("--stats-interval/--trace ride the resident service; "
+                 "use them with --serve")
+    if args.expect_obs and not (args.serve and args.stats_interval and args.trace):
+        ap.error("--expect-obs needs --serve --stats-interval S --trace FILE")
 
     if args.corpus:
         toks = corpus.token_stream(200_000, args.vocab, seed=0)
@@ -114,6 +312,8 @@ def main(argv=None):
         patterns=args.patterns, backend=args.backend,
         early_stop=not args.no_early_stop, tune=args.tune,
     )
+    if args.serve:
+        return _serve(args, rows, n_items, name, spec)
     engine = MiningEngine(device=args.device, snapshot_dir=args.snapshot_dir)
     if args.sweep:
         fracs = [float(s) for s in args.sweep.split(",")]

@@ -16,8 +16,11 @@ Registered algorithms: ``hprepost`` (the paper's miner, on a torch device),
 ``prepost`` / ``prepost+``, ``fpgrowth``, ``apriori``, ``bruteforce``
 (test oracle). New miners join via ``@register_miner("name")``.
 
-``SnapshotStore`` (cross-process PreparedDB persistence, also reachable as
-``MiningEngine(snapshot_dir=...)``) lives in ``repro_torch.mining.service``.
+The serving layer lives in ``repro_torch.mining.service`` (re-exported
+lazily from here): ``MiningService`` (submit -> Future, batching window,
+drain), ``GroupScheduler`` (cross-group prepare/mine overlap, the prepare
+on a CUDA stream of its own) and ``SnapshotStore`` (cross-process
+PreparedDB persistence; also reachable as ``MiningEngine(snapshot_dir=...)``).
 """
 import torch
 
@@ -53,11 +56,13 @@ def mine(rows, n_items: int, spec: MineSpec | None = None, device=None,
 
 
 __all__ = [
+    "GroupScheduler",
     "MineSpec",
     "MineResult",
     "MineRequest",
     "Miner",
     "MiningEngine",
+    "MiningService",
     "PATTERN_KINDS",
     "SnapshotStore",
     "get_miner",
@@ -65,3 +70,13 @@ __all__ = [
     "mine",
     "register_miner",
 ]
+
+
+def __getattr__(name: str):
+    # the service spins thread pools and imports back through this package:
+    # loaded on first touch, not by a bare ``import repro_torch.mining``
+    if name in ("MiningService", "GroupScheduler"):
+        import repro_torch.mining.service as _service
+
+        return getattr(_service, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -37,11 +37,12 @@ and results carry ``service_stats["prep_source"] == "snapshot"``. The
 store requires the LRU to be enabled (``prep_cache_bytes > 0``) — a loaded
 snapshot lands in the LRU like any other entry.
 
-The engine is thread-safe (one coarse lock over planning state), so a
-serving layer can overlap one group's prepare with another's waves. The
-reference's streaming, continuous and distributed entry points (``stream``,
-``append``, ``submit_stream``, ``register_standing``, ``distribute``) come
-with those layers.
+The engine is thread-safe (one coarse lock over planning state), so the
+serving layer (``repro_torch.mining.service``) overlaps one group's
+prepare, on a prep thread and its own CUDA stream, with another group's
+waves. The reference's streaming, continuous and distributed entry points
+(``stream``, ``append``, ``submit_stream``, ``register_standing``,
+``distribute``, ``stream_stats``) come with those layers.
 """
 from __future__ import annotations
 
@@ -72,13 +73,21 @@ _STAGE_KEYS = ("job1_flist", "job2_ppc_pack", "f2_scan", "mining_waves")
 
 @dataclasses.dataclass
 class MineRequest:
-    """One unit of mining traffic: a database plus its spec. (The
-    reference's service fields ``deadline_at``/``trace_id`` come with the
-    service.)"""
+    """One unit of mining traffic: a database plus its spec.
+
+    ``deadline_at`` is an absolute ``time.monotonic()`` instant stamped by
+    the service from ``spec.deadline_s`` at admission; the scheduler drops
+    (``DeadlineExceeded``) requests whose deadline passes before their
+    device work starts. None = no deadline."""
 
     rows: object  # (R, L) padded transaction matrix
     n_items: int
     spec: MineSpec
+    deadline_at: float | None = None
+    # root span id stamped by the service when a tracer is attached, so
+    # scheduler/engine spans parent into the request's tree. Like QoS
+    # fields, never part of any plan/prep/snapshot key.
+    trace_id: int | None = None
 
 
 class MiningEngine:

@@ -42,8 +42,13 @@ class MineSpec:
     early_stop: bool = True  # hprepost: early-stopping intersections (host
     # Apriori-closure pruning + in-kernel bound masking where sound); False
     # runs the exact legacy path bit-for-bit
-    tune: bool = False  # hprepost: resolve block knobs via a KernelTuner;
-    # the port has none yet, so True raises NotImplementedError
+    tune: bool = False  # hprepost: resolve la_block via the persisted
+    # KernelTuner instead of the static field
+    # Service-level QoS, ignored by direct mine() calls: neither field
+    # participates in device config / prep keys (execution-orthogonal).
+    priority: int = 0  # MiningService: higher priority groups serve first
+    deadline_s: float | None = None  # MiningService: drop (DeadlineExceeded)
+    # if not *started* within this many seconds of submit
 
     def __post_init__(self):
         if self.min_sup is not None and self.min_count is not None:
@@ -60,6 +65,8 @@ class MineSpec:
             raise ValueError(f"rank_k must be >= 1, got {self.rank_k}")
         if self.la_block < 1:
             raise ValueError(f"la_block must be >= 1, got {self.la_block}")
+        if self.deadline_s is not None and not self.deadline_s > 0:
+            raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
 
     def resolve(self, n_rows: int) -> int:
         """Absolute support threshold for a database of ``n_rows`` rows.

@@ -1,4 +1,5 @@
-"""repro_torch.mining.telemetry — latency histograms and request trace spans.
+"""repro_torch.mining.telemetry — latency histograms, request trace spans,
+and a periodic stats emitter for the serving stack.
 
   - :mod:`.hist` — ``LatencyHistogram`` (fixed log buckets, mergeable,
     thread-safe, exact counts, p50/p95/p99 from bucket edges) plus the
@@ -6,10 +7,11 @@
     ``MiningEngine``, at ``engine.telemetry``);
   - :mod:`.trace` — per-request span trees behind a ``failures``-style
     global attach/detach, exported as JSON or Chrome trace events. With no
-    recorder attached a span site costs one global read.
-
-The reference's periodic stats emitter comes with the serving layer.
+    recorder attached a span site costs one global read;
+  - :mod:`.emit` — ``StatsEmitter``, a background JSON-lines snapshot
+    loop with chaos-point drop containment (``telemetry.emit``).
 """
+from .emit import StatsEmitter
 from .hist import (
     DEFAULT_EDGES,
     SCHEMA_VERSION,
@@ -27,6 +29,7 @@ __all__ = [
     "Gauge",
     "LatencyHistogram",
     "Registry",
+    "StatsEmitter",
     "TraceRecorder",
     "active",
     "attach",

@@ -314,3 +314,83 @@ def test_engine_eviction_frees_device_memory(cuda):
     info = lru.cache_info()
     assert info["evictions"] == 1 and info["entries"] == 1
     assert abs(torch.cuda.memory_allocated(cuda) - only_big) <= 1 << 20
+
+
+# ------------------------------------------------ the service on the card
+def _serve(dbs, fracs, *, overlap=True, **svc_kw):
+    """One batch through a fresh ``MiningService`` on the card: a sweep per
+    database, all inside one batch window. -> (results, service)."""
+    from repro_torch.mining import MineSpec, MiningService
+
+    spec = MineSpec(algorithm="hprepost")
+    svc = MiningService(device="cuda", batch_window_s=0.05, **svc_kw)
+    svc.scheduler.overlap = overlap
+    try:
+        futs = [f for rows, n_items in dbs for f in svc.sweep(rows, n_items, spec, fracs)]
+        out = [f.result(timeout=300) for f in futs]
+    finally:
+        svc.close()
+    return out, svc
+
+
+def _engine_answers(dbs, fracs):
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    eng = MiningEngine(device="cpu")
+    return [eng.submit(rows, n_items, MineSpec(algorithm="hprepost", min_sup=f)).itemsets
+            for rows, n_items in dbs for f in fracs]
+
+
+def test_service_two_group_batch_on_card_matches_engine(cuda):
+    dbs = [load("mushroom", scale=0.3), load("kosarak", scale=0.05)]
+    fracs = [0.3, 0.15]
+    out, svc = _serve(dbs, fracs)
+    assert [r.itemsets for r in out] == _engine_answers(dbs, fracs)
+    st = svc.scheduler.stats
+    assert svc.stats["batches"] == 1 and svc.engine.stats["prepares"] == 2
+    assert st["device_groups"] == 2 and st["overlapped_prepares"] == 1
+    assert [r.service_stats["prep_overlapped"] for r in out] == [False, False, True, True]
+    assert all(r.service_stats["prep_source"] == "built" for r in out)
+
+
+def test_service_record_stream_under_eviction(cuda):
+    """An LRU smaller than two preps evicts the group being served while the
+    next group's prep allocates on the prep stream: the served answers must
+    not change (``record_stream`` keeps the evicted block from reuse)."""
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    dbs = [load("mushroom", scale=0.3), load("pumsb", scale=0.1),
+           load("kosarak", scale=0.05), load("mushroom", scale=0.2)]
+    fracs = [0.3, 0.15]
+    probe = MiningEngine(device="cpu")
+    sizes = []
+    for rows, n_items in dbs:
+        probe.clear_prep_cache()
+        probe.submit(rows, n_items, MineSpec(algorithm="hprepost", min_sup=min(fracs)))
+        sizes.append(probe.cache_info()["bytes_in_use"])
+    budget = max(sizes) + 1  # fits any one prep, never two
+    for _ in range(3):
+        out, svc = _serve(dbs, fracs, prep_cache_bytes=budget)
+        assert [r.itemsets for r in out] == _engine_answers(dbs, fracs)
+        info = svc.engine.cache_info()
+        assert info["evictions"] >= len(dbs) - 1 and info["entries"] == 1
+        assert svc.scheduler.stats["overlapped_prepares"] == len(dbs) - 1
+
+
+def test_service_launch_counts_exact_with_overlap(cuda):
+    import repro_torch.kernels as kernels
+    from repro_torch.mining import MineSpec
+
+    dbs = [load("mushroom", scale=0.3), load("pumsb", scale=0.1), load("kosarak", scale=0.05)]
+    fracs = [0.3, 0.2, 0.15]
+    counts = {}
+    for overlap in (True, False, True):
+        kernels.reset_launches()
+        out, svc = _serve(dbs, fracs, overlap=overlap)
+        got = kernels.launches()
+        waves = svc.engine.frontend("hprepost").miner_for(MineSpec()).stage_counters["waves"]
+        assert got["histogram"] == got["cooccur"] == len(dbs)
+        assert got["nlist_intersect_es"] == waves and got["nlist_intersect"] == 0
+        counts.setdefault(overlap, []).append(got)
+        assert [r.itemsets for r in out] == _engine_answers(dbs, fracs)
+    assert counts[True][0] == counts[True][1] == counts[False][0]

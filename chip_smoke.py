@@ -43,7 +43,27 @@ Phases, in order; any failure raises and exits non-zero:
      torch.profiler): batch walls, the ``scheduler.prep_wait_s`` p50, the
      device idle share and whether device work on the prep stream and on
      the wave stream ran at the same time.
-Then one JSON line describing the kernels (launches: phases 4, 6 and 7),
+  8. streaming and continuous mining (``MiningEngine(device="cuda").append``
+     / ``submit_stream`` / ``register_standing`` and the service's stream
+     lane), on the full-scale datasets: 8a mushroom streamed as 4 and as 16
+     batches — each append prepares its batch alone (one B4 launch, no B3,
+     ``prep_source == "built"``) and the sweep 0.3/0.2/0.15 from the live
+     stream equals a one-shot mine and the host PrePost miner, the queries
+     launching B1 once per segment per wave and B2 never; 8b pumsb as 4
+     batches at its full width (``max_f1=8192``: B4 at K = 7,117), its
+     query at 0.15 equal to the one-shot mine and the host PrePost miner,
+     with each segment's sizes and B4 and B1 held to their plain versions at
+     the segment's shapes; 8c each append of the 16-batch stream timed
+     against a one-shot prepare of all rows so far, a query at 4 and at 16
+     segments against a warm monolithic mine, and compaction; 8d a
+     4-batch sliding window (equal to a one-shot mine over the window's
+     rows) with a standing query whose diffs replay to the final answer,
+     and a decayed stream against ``damped_oracle``; 8e a second engine
+     replaying 8a's append log from snapshots (no prepare, no B4), then
+     appends, stream queries and a standing query through one
+     ``MiningService`` from two producer threads, and an async compaction
+     racing a served query.
+Then one JSON line describing the kernels (launches: phases 4, 6, 7 and 8),
 and last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
@@ -672,6 +692,373 @@ def service_phase(K, data, host) -> dict[str, int]:
     return got
 
 
+def stream_phase(K, data, host, smi: str):
+    """Phase 8: streaming and continuous mining on the card (see the module
+    docstring). Every time printed carries ``smi``, the card's name and
+    power limit. -> (this phase's launches, the kernel entries at a pumsb
+    segment's shapes)."""
+    from repro_torch.core import encoding as enc
+    from repro_torch.data.synth import random_db
+    from repro_torch.kernels.cooccur import ref as cooc_ref
+    from repro_torch.kernels.nlist_intersect import ref as nl_ref
+    from repro_torch.mining import MineSpec, MiningEngine, MiningService
+    from repro_torch.mining.continuous import damped_oracle, replay_diffs
+    from repro_torch.mining.stream import StreamSpec
+
+    dev = "cuda"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def moved_since(before):
+        return {k: v - before[k] for k, v in K.launches().items()}
+
+    def check_host(what, name, res):
+        want = host_answer(data, host, name, res.min_count)
+        if res.itemsets != want:
+            raise AssertionError(f"{what} at min_count {res.min_count}: {len(res.itemsets)} "
+                                 f"itemsets vs {len(want)} from the host PrePost miner")
+
+    def seg_waves(stream):
+        return stream.miner.stage_counters.get("seg_waves", 0)
+
+    def append_all(eng, batches, n_items, spec, what):
+        """Append every batch, checking that each prepares its batch alone
+        (one B4 launch, no other kernel, one more seg_prepare, built).
+        -> (per-append wall seconds, the stream)."""
+        walls = []
+        for i, b in enumerate(batches):
+            before = K.launches()
+            sm = eng.stream(n_items=n_items, spec=spec)
+            p0 = sm.stats["seg_prepares"]
+            st, wall = timed(lambda: eng.append(b, n_items, spec=spec))
+            moved = moved_since(before)
+            if (st["prep_source"] != "built" or sm.stats["seg_prepares"] != p0 + 1
+                    or moved != {**{k: 0 for k in moved}, "cooccur": 1}):
+                raise AssertionError(f"{what} append {i}: {st}, launches {moved}")
+            walls.append(wall)
+        return walls, eng.stream()
+
+    def query(eng, spec, what, stream="default"):
+        """One stream query: B1 once per segment per wave, no other kernel.
+        -> (result, wall seconds)."""
+        sm = eng.stream(stream)
+        w0, s0, before = sm.miner.stage_counters["waves"], seg_waves(sm), K.launches()
+        res, wall = timed(lambda: eng.submit_stream(spec, stream=stream))
+        moved = moved_since(before)
+        waves, sw = sm.miner.stage_counters["waves"] - w0, seg_waves(sm) - s0
+        n_seg = res.service_stats["stream_segments"]
+        if (sw != waves * n_seg or moved["nlist_intersect"] != sw
+                or any(v for k, v in moved.items() if k != "nlist_intersect")):
+            raise AssertionError(f"{what}: {waves} waves over {n_seg} segments, seg_waves {sw}, "
+                                 f"launches {moved}")
+        return res, wall
+
+    K.reset_launches()
+    spec = MineSpec(algorithm="hprepost")
+    fracs = [0.3, 0.2, 0.15]
+    rows, n_items = data["mushroom"]
+    oneshot = MiningEngine(device=dev, prep_cache_bytes=0)
+
+    # 8a. mushroom streamed as 4 and as 16 batches; 8c. each append against a
+    # one-shot prepare of every row so far, queries against a warm monolith
+    mono = MiningEngine(device=dev)
+    mono.submit(rows, n_items, spec.with_(min_sup=0.15))  # warm: cached prep
+    mono_s = [timed(lambda: mono.submit(rows, n_items, spec.with_(min_sup=0.15)))[1]
+              for _ in range(3)]
+    rebuild_fe = MiningEngine(device=dev, prep_cache_bytes=0).frontend("hprepost")
+    snap_dir = tempfile.mkdtemp(prefix="chip-smoke-stream-")
+    streams = {}
+    try:
+        for S in (4, 16):
+            batches = np.array_split(rows, S)
+            eng = MiningEngine(device=dev, snapshot_dir=snap_dir if S == 4 else None)
+            walls, sm = append_all(eng, batches, n_items, spec, f"mushroom/{S}")
+            hist_s = [timed(lambda b=b: enc.item_support(b, n_items))[1] for b in batches]
+            results = []
+            for f in fracs:
+                res, wall = query(eng, spec.with_(min_sup=f), f"mushroom/{S} query {f}")
+                want = oneshot.submit(rows, n_items, spec.with_(min_sup=f))
+                if res.itemsets != want.itemsets or res.n_rows != len(rows):
+                    raise AssertionError(f"mushroom/{S} at {f}: {len(res.itemsets)} itemsets over "
+                                         f"{res.n_rows} rows vs the one-shot mine's {len(want.itemsets)}")
+                check_host(f"mushroom/{S} query {f}", "mushroom", res)
+                results.append((f, res, wall))
+            q_s = [query(eng, spec.with_(min_sup=0.15), f"mushroom/{S} timed query")[1]
+                   for _ in range(3)]
+            segs = sm.db.segments
+            log(f"stream mushroom/{S}: {len(rows)} rows in {S} batches, segments K_s "
+                f"{[s.k for s in segs][:4]}{'...' if S > 4 else ''} W_s "
+                f"{sorted({s.prepared.width for s in segs})}, planes {sum(s.device_bytes for s in segs)} "
+                f"bytes on the device; append walls {[round(w * 1e3, 2) for w in walls]}ms "
+                f"(host histogram {[round(h * 1e3, 2) for h in hist_s]}ms, prep stages "
+                f"{[round(sum(s.prepared.stage_times.values()) * 1e3, 2) for s in segs]}ms); "
+                f"sweep {[(f, len(r.itemsets), round(w * 1e3, 2)) for f, r, w in results]} "
+                f"(itemsets, ms) == one-shot == host mine_prepost; query@0.15 "
+                f"{[round(t * 1e3, 2) for t in q_s]}ms against the warm monolithic mine "
+                f"{[round(t * 1e3, 2) for t in mono_s]}ms [{smi}]")
+            if S == 16:
+                # 8c. the full-rebuild baseline: a one-shot prepare (Job 1, Job 2,
+                # F2) of every row so far at the sweep's loosest floor
+                rebuild = []
+                for i in range(1, S + 1):
+                    seen = np.concatenate(batches[:i])
+                    floor = spec.with_(min_sup=0.15).resolve(len(seen))
+                    rebuild.append(timed(lambda: rebuild_fe.prepare(seen, n_items, floor, spec))[1])
+                log(f"stream append against rebuild, mushroom/16: appends "
+                    f"{[round(w * 1e3, 2) for w in walls]}ms (sum {sum(walls) * 1e3:.2f}), one-shot "
+                    f"prepare of all rows so far {[round(w * 1e3, 2) for w in rebuild]}ms (sum "
+                    f"{sum(rebuild) * 1e3:.2f}) [{smi}]")
+                before = results[-1][1].itemsets
+                passes = []
+                while len(sm.db.segments) > 1:
+                    n0 = len(sm.db.segments)
+                    _, wall = timed(sm.compact)
+                    passes.append((n0, len(sm.db.segments), round(wall * 1e3, 2)))
+                res, wall = query(eng, spec.with_(min_sup=0.15), "mushroom after compaction")
+                if res.itemsets != before or sm.stats["compactions"] != len(passes):
+                    raise AssertionError(f"compaction changed the answer or miscounted: {sm.stats}")
+                log(f"stream compaction mushroom/16: passes (segments before, after, ms) {passes}; "
+                    f"query@0.15 on 1 segment {wall * 1e3:.2f}ms, answer unchanged [{smi}]")
+            streams[S] = (eng, batches)
+
+        # 8b. pumsb at its full width: every item of a batch in its segment
+        prows, pn = data["pumsb"]
+        pspec = spec.with_(max_f1=8192)
+        pb = np.array_split(prows, 4)
+        peng = MiningEngine(device=dev)
+        psm = peng.stream(n_items=pn, spec=pspec)
+        add_s = []
+        add = psm.db.add_segment
+
+        def timed_add(seg):  # the host fold of a segment's F2 block
+            t0 = time.perf_counter()
+            add(seg)
+            add_s.append(time.perf_counter() - t0)
+
+        psm.db.add_segment = timed_add
+        walls, _ = append_all(peng, pb, pn, pspec, "pumsb/4")
+        pres, pwall = query(peng, pspec.with_(min_sup=0.15), "pumsb/4 query 0.15")
+        want = oneshot.submit(prows, pn, spec.with_(min_sup=0.15))
+        if pres.itemsets != want.itemsets:
+            raise AssertionError(f"pumsb stream: {len(pres.itemsets)} itemsets vs the one-shot "
+                                 f"mine's {len(want.itemsets)}")
+        check_host("pumsb stream query 0.15", "pumsb", pres)
+        C = psm.db.C
+        mc = pres.min_count
+        (_, t_plan) = timed(lambda: (np.packbits((C + C.T) >= mc, axis=1),
+                                     np.packbits(np.tri(len(C), len(C), -1, dtype=bool), axis=1)))
+        segs = psm.db.segments
+        log(f"stream pumsb/4 (max_f1=8192): segments K_s {[s.k for s in segs]}, W_s "
+            f"{[s.prepared.width for s in segs]}, planes bytes {[s.device_bytes for s in segs]}; "
+            f"append walls {[round(w * 1e3, 1) for w in walls]}ms (prep stages "
+            f"{[{k: round(v * 1e3, 1) for k, v in s.prepared.stage_times.items()} for s in segs]}ms, "
+            f"host add_segment {[round(t * 1e3, 1) for t in add_s]}ms); query@0.15 "
+            f"{pwall * 1e3:.1f}ms with planning tables (pair_ok, prefix) {t_plan * 1e3:.1f}ms on "
+            f"K={len(C)}; {len(pres.itemsets)} itemsets == one-shot == host mine_prepost [{smi}]")
+        phase = K.launches()  # the main path's launches, before the kernel checks
+
+        # B4 and B1 at a pumsb segment's shapes, against their plain versions
+        seg, b0 = segs[0], pb[0]
+        lut = torch.from_numpy(seg.prepared.fl.rank_lut()).to(dev)
+        ranked = enc.rank_encode_torch(torch.from_numpy(b0).to(dev), lut, pn)
+        wr = torch.ones(ranked.shape[0], dtype=torch.int32, device=dev)
+        err = assert_equal("cooccur pumsb segment",
+                           (K.cooccur_cuda(ranked, wr, n_items=seg.k),),
+                           (cooc_ref.cooccur_ref(ranked, wr, n_items=seg.k),))
+        R, L = ranked.shape
+        nvalid = (ranked >= 0).sum(1).to(torch.int64)
+        pairs = int((nvalid * nvalid).sum())
+        b, by = bound(R * L * 4 + R * 4 + seg.k * seg.k * 4, pairs)
+        X = torch.zeros((R, seg.k + 1), dtype=torch.float32, device=dev)
+        X.scatter_add_(1, torch.where(ranked >= 0, ranked, seg.k).long(),
+                       torch.ones_like(ranked, dtype=torch.float32))
+        X = X[:, :seg.k].contiguous()
+        cooc = dict(shape=f"pumsb stream segment: ranked rows {R}x{L}, K={seg.k}, {pairs} pair "
+                          f"updates", max_abs_err=err,
+                    ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=seg.k)),
+                    plain_ms=time_ms(lambda: cooc_ref.cooccur_ref(ranked, wr, n_items=seg.k),
+                                     reps=2),
+                    library_ms=time_ms(lambda: X.T @ X, reps=3),
+                    library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+                    bound_ms=b, bound_by=by)
+        del ranked, wr, lut, nvalid, X
+        h = psm.db.handles()[0]
+        qs, ps = np.nonzero(C >= mc)
+        ranks = np.stack([qs, ps], axis=1).astype(np.int32)
+        idx, _, _ = psm.miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
+        local = torch.from_numpy(np.stack([h.g2l[idx[0]], h.g2l[idx[1]], h.g2l[idx[2]]])
+                                 .astype(np.int64)).to(dev)
+        n_live = len(ranks)
+        got = K.nlist_wave_cuda(h.planes, h.singleton, local, n_live)
+        err = assert_equal("nlist_intersect pumsb segment", got,
+                           nl_ref.nlist_wave_ref(h.planes, h.singleton, local, n_live))
+        nb, nz = wave_bytes(h.planes, h.singleton, local, n_live)
+        W = h.planes.shape[2]
+        b, by = bound(nb, nz * (math.ceil(math.log2(W)) + 2))
+        wave = dict(shape=f"pumsb stream segment level-2 wave: {n_live} candidates, Cpad "
+                          f"{idx.shape[1]} x W {W}, planes (3, {seg.k + 1}, {W}) with the "
+                          f"sentinel row, {nz} nonzero Y codes", max_abs_err=err,
+                    ms=time_ms(lambda: K.nlist_wave_cuda(h.planes, h.singleton, local, n_live)),
+                    plain_ms=time_ms(lambda: nl_ref.nlist_wave_ref(h.planes, h.singleton, local,
+                                                                   n_live), reps=2),
+                    library_ms=None, bound_ms=b, bound_by=by)
+        log(f"  B4 equal to its plain version at a pumsb segment (K={seg.k}): {cooc['ms']:.4f}ms "
+            f"against plain {cooc['plain_ms']:.2f}ms, one-hot X^T X {cooc['library_ms']:.2f}ms, "
+            f"bound {cooc['bound_ms']:.4f}ms; B1 equal at "
+            f"its level-2 wave: {wave['ms']:.4f}ms against plain {wave['plain_ms']:.2f}ms, bound "
+            f"{wave['bound_ms']:.4f}ms [{smi}]")
+        extra = {"cooccur": cooc, "nlist_intersect": wave}
+        del local, got, h
+        del psm, peng, segs, seg, C
+        gc.collect()
+
+        # 8d. a sliding window of 4 batches, with a standing query registered
+        # before the first append, and a decayed stream
+        K.reset_launches()
+        batches = streams[16][1]
+        weng = MiningEngine(device=dev)
+        wspec = spec.with_(min_sup=0.2)
+        weng.stream(n_items=n_items, spec=spec, stream_spec=StreamSpec(window_batches=4))
+        sq = weng.register_standing(wspec)
+        reps = [timed(lambda b=b: weng.append(b, n_items))[0] for b in batches]
+        wres, _ = query(weng, wspec, "windowed query")
+        window = np.concatenate(batches[-4:])
+        want = oneshot.submit(window, n_items, wspec)
+        wst = weng.stream_stats()["default"]
+        if (wres.itemsets != want.itemsets or wres.n_rows != len(window)
+                or wst["expires"] != len(batches) - 4 or wst["expired_rows"] != len(rows) - len(window)):
+            raise AssertionError(f"window: {len(wres.itemsets)} itemsets over {wres.n_rows} rows vs "
+                                 f"{len(want.itemsets)} over {len(window)}; stats {wst}")
+        if not (replay_diffs(sq.diffs) == sq.latest == wres.itemsets) or len(sq.diffs) != len(batches) + 1:
+            raise AssertionError(f"standing query: {len(sq.diffs)} diffs do not replay to the answer")
+        lat = [round(d.latency_s * 1e3, 2) for d in sq.diffs]
+        log(f"stream window mushroom/16 batches, window 4: {wres.n_rows} rows retained, "
+            f"{len(wres.itemsets)} itemsets == one-shot over the window; expires {wst['expires']}, "
+            f"expired_rows {wst['expired_rows']}; standing query: {len(sq.diffs)} diffs replay to the "
+            f"answer, refresh latencies {lat}ms, seed-pruned {wst['seed_pruned_candidates']}, append "
+            f"walls with refresh {[round(r['append_s'] * 1e3, 2) for r in reps]}ms [{smi}]")
+        rng = np.random.default_rng(8)
+        dbatches = [random_db(rng, n, 12, 6) for n in (300, 220, 260, 240)]
+        dspec = spec.with_(min_sup=None, min_count=25)
+        dres = []
+        for d in (dev, "cpu"):
+            e = MiningEngine(device=d)
+            for b in dbatches:
+                e.append(b, 12, spec=dspec, stream_spec=StreamSpec(decay=0.9))
+            dres.append(e.submit_stream(dspec).itemsets)
+        oracle = damped_oracle(dbatches, 12, 0.9, 25.0)
+        if dres[0] != dres[1] or set(dres[0]) != set(oracle) or any(
+                abs(v - oracle[t]) > 1e-9 * abs(oracle[t]) for t, v in dres[0].items()):
+            raise AssertionError("decayed stream: the card's answer differs from the CPU port's "
+                                 "or from damped_oracle")
+        log(f"stream decay 0.9: {len(dres[0])} itemsets, the card's float64 supports equal the CPU "
+            f"port's bit for bit and damped_oracle's within 1e-9 relative")
+
+        # 8e. warm start: a second engine replays 8a's 4-batch append log
+        before = K.launches()
+        warm = MiningEngine(device=dev, snapshot_dir=snap_dir)
+        for b in streams[4][1]:
+            st = warm.append(b, n_items, spec=spec)
+            if st["prep_source"] != "snapshot":
+                raise AssertionError(f"replayed append: {st}")
+        moved = moved_since(before)
+        wsm = warm.stream()
+        if wsm.stats["seg_prepares"] != 0 or moved["cooccur"] or moved["histogram"]:
+            raise AssertionError(f"replay: stats {wsm.stats}, launches {moved}")
+        r_w, _ = query(warm, spec.with_(min_sup=0.15), "replayed stream query")
+        check_host("replayed stream", "mushroom", r_w)
+        log(f"stream warm start: 4 appends replayed from snapshots, seg_prepares 0, snapshot hits "
+            f"{wsm.stats['seg_snapshot_hits']}, launches {json.dumps(moved)}; query@0.15 "
+            f"{len(r_w.itemsets)} itemsets == host mine_prepost")
+        del warm, wsm
+    finally:
+        import shutil
+
+        shutil.rmtree(snap_dir, ignore_errors=True)
+
+    # the service's stream lane: two producer threads append alternate
+    # batches, each following every append with a stream query
+    with MiningService(device=dev, batch_window_s=0.02) as svc:
+        qspec = spec.with_(min_sup=0.2)
+        svc.engine.stream("svc", n_items=n_items, spec=spec)
+        standing = svc.register_standing(qspec, stream="svc").result(timeout=120)
+        batches = streams[16][1]
+        halves = [batches[0::2], batches[1::2]]
+        futs = [[], []]
+        errors = []
+        start = threading.Barrier(3)
+
+        def producer(i):
+            start.wait()
+            try:
+                seen = 0
+                for b in halves[i]:
+                    futs[i].append(("append", len(b), svc.append(b, stream="svc")))
+                    seen += len(b)
+                    futs[i].append(("query", seen, svc.submit_stream(qspec, stream="svc")))
+            except BaseException as e:  # surfaced below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=producer, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(60)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"a stream producer failed or hung: {errors}")
+        for plan in futs:
+            for kind, n, f in plan:
+                out = f.result(timeout=600)
+                # a query submitted after this thread's appends sees them all
+                if kind == "query" and out.n_rows < n:
+                    raise AssertionError(f"a stream query saw {out.n_rows} rows after {n} were appended")
+        lane_wall = time.perf_counter() - t0
+        final, _ = query(svc.engine, qspec, "served stream, final", stream="svc")
+        check_host("served stream", "mushroom", final)
+        snap = svc.stats()
+        if (final.n_rows != len(rows) or "svc" not in snap["streams"]
+                or snap["streams"]["svc"]["appends"] != len(batches)
+                or not (replay_diffs(standing.diffs) == standing.latest == final.itemsets)):
+            raise AssertionError(f"service stream lane: {final.n_rows} rows, streams "
+                                 f"{sorted(snap['streams'])}, {len(standing.diffs)} diffs")
+        log(f"service stream lane: {len(batches)} appends and {len(batches)} stream queries from 2 "
+            f"producer threads in {svc.stats['batches']} batches, {lane_wall:.3f}s; final "
+            f"{len(final.itemsets)} itemsets == host; standing query {len(standing.diffs)} diffs replay "
+            f"to it; stats()['streams'] holds {sorted(snap['streams'])} [{smi}]")
+
+        # an async compaction racing a served query
+        rspec = StreamSpec(compact_async=True)
+        svc.engine.stream("race", n_items=n_items, spec=spec, stream_spec=rspec)
+        for f in [svc.append(b, stream="race") for b in streams[4][1]]:
+            f.result(timeout=120)
+        first = svc.submit_stream(qspec, stream="race").result(timeout=120)
+        rsm = svc.engine.stream("race")
+        rsm.compact(wait=False)
+        during = svc.submit_stream(qspec, stream="race").result(timeout=120)
+        rsm.flush()
+        after = svc.submit_stream(qspec, stream="race").result(timeout=120)
+        merged = [s for s in rsm.db.segments if s.n_batches > 1]
+        if (not (first.itemsets == during.itemsets == after.itemsets) or rsm.stats["compactions"] != 1
+                or len(merged) != 1 or merged[0].ready is None):
+            raise AssertionError(f"async compaction race: stats {rsm.stats}")
+        log(f"service async compaction racing a query: answers before, during and after equal "
+            f"({len(after.itemsets)} itemsets), segments {first.service_stats['stream_segments']} -> "
+            f"{after.service_stats['stream_segments']}, merged segment handed over by an event")
+        rsm.close()
+    got = K.launches()
+    total = {k: phase[k] + got[k] for k in got}
+    if not (total["nlist_intersect"] and total["cooccur"]):
+        raise AssertionError(f"a kernel of the streaming path was not launched in phase 8: {total}")
+    return total, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -966,9 +1353,15 @@ def main() -> int:
     service_launches = service_phase(K, data, host)
     log(f"service: launches {json.dumps(service_launches)}")
 
+    # ------------------------------------- 8. streaming and continuous mining
+    stream_launches, stream_entries = stream_phase(K, data, host, smi)
+    log(f"stream: launches {json.dumps(stream_launches)}")
+    for kname, e in stream_entries.items():
+        entries[kname]["at_stream_pumsb_segment"] = e
+
     kernels = []
     for kname, e in entries.items():
-        n = total[kname] + engine_launches[kname] + service_launches[kname]
+        n = total[kname] + engine_launches[kname] + service_launches[kname] + stream_launches[kname]
         kernels.append(dict(name=kname, route="cuda", launches=n, kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,11 @@ The Hadoop pipeline maps onto one data shard and one candidate group
                              intersect + support kernel, reading each
                              candidate's parent state and N-lists by index
 
+The streaming reduce (``mine_prepared_segments``) runs the same wave loop
+over a segmented database: one B1 launch per segment per wave, against
+each segment's ``(3, K_s + 1, W_s)`` planes (``extend_with_sentinel``), and
+the per-segment supports summed on the host.
+
 Mining state per candidate: the merged N-list counts aligned with the
 candidate's base-item code slots — ``(C, W)`` buffers, candidate counts
 bucketed to powers of two like the reference. The host drives the level
@@ -106,7 +111,12 @@ class PreparedDB:
     stage_times: dict[str, float]  # job1_flist / job2_ppc_pack / f2_scan
     f1_only: bool = False  # True when built with need_waves=False
     n_shards: int = 1  # data-shard count (D) this prep was laid out for
-    support_ordered: bool = True  # False when the F-list order was imposed
+    # False when the F-list order was imposed externally (``prepare(...,
+    # flist=...)`` — the streaming path's shared global item order) instead
+    # of derived support-descending from this database. Such preps are
+    # segment building blocks for ``mine_prepared_segments``; the prefix
+    # arithmetic ``mine_prepared`` leans on does not hold for them.
+    support_ordered: bool = True
 
     def to_host(self) -> dict:
         """The prep as a host payload (plain numpy + scalars) in the
@@ -198,6 +208,127 @@ class PreparedDB:
     def k_active(self, min_count: int) -> int:
         """|F1| at ``min_count`` — a prefix length of the floor F-list."""
         return int(np.count_nonzero(np.asarray(self.fl.supports) >= min_count))
+
+
+@dataclasses.dataclass
+class SegmentHandle:
+    """One segment's device state, ready for cross-segment wave execution.
+
+    ``planes`` are the segment's N-lists as the wave kernel reads them,
+    ``(3, K_s + 1, W_s)`` int32 (pre, post, count), with one all-padding
+    *sentinel* rank row at index ``K_s`` (``extend_with_sentinel``); ``g2l``
+    maps every global stream rank to the segment's local rank, with ranks
+    absent from the segment mapped to the sentinel. The wave kernel cuts
+    every list at its padding, so the sentinel row is an empty N-list: a
+    candidate touching an item the segment never saw reports support 0
+    there — precisely its contribution to the global (additive) support.
+    (The reference's handle holds the same rows as a ``(D, K_s + 1, W_s,
+    3)`` buffer.)
+
+    ``ready``: a CUDA event recorded after the planes were built, when they
+    were built on another stream than the queries' (a compaction's); None
+    otherwise."""
+
+    planes: Any  # (3, K_s + 1, W_s) device N-lists incl. the sentinel row
+    singleton: Any  # planes[2] — the segment's level-2 bootstrap
+    g2l: np.ndarray  # (K_global,) int32: stream rank -> local rank | K_s
+    ready: Any = None
+
+
+class LocalSegmentExecutor:
+    """Runs planned waves over in-process segment handles — the execution
+    half of ``mine_prepared_segments``, split from the planning loop so a
+    coordinator can swap in a remote executor without touching the planner.
+
+    Contract (the reference's, with the port's wave layout):
+
+      - ``n_segments``: how many transaction partitions answer waves; 0
+        short-circuits the wave loop (F1-only result).
+      - ``begin()``: reset per-query state to the level-2 singleton
+        bootstrap.
+      - ``dispatch(level, idx, n_live)``: launch one planned wave over every
+        segment; ``idx`` is the wave's host ``(3, Cpad)`` int64 (parent,
+        base, extension) rows from ``HPrepostMiner._pack_wave`` in the
+        global rank space, ``n_live`` its live slots. Returns an opaque
+        token and does not block on device results (pipelining). No
+        in-kernel early stop: segmented supports are partial until the
+        cross-segment reduce, so masking against the global threshold
+        would be unsound — every segment wave runs B1, and host-side
+        pruning carries the early-stop win.
+      - ``collect(token)``: block, and return the per-candidate supports
+        summed over this executor's segments as an int64 host vector —
+        the paper's reduce step. With ``weights`` the reduce is instead the
+        float64 weighted sum ``Σ w_s · sup_s`` (time-decayed supports: the
+        per-segment integer supports stay exact on the device; damping
+        happens only in this host reduce).
+      - ``weights``: optional per-segment float weights, or None for the
+        exact integer reduce — the planner reads this attribute to decide
+        integer vs float threshold semantics.
+      - ``state_bytes``: footprint of the in-flight merged-N-list states
+        after the latest dispatch/collect (peak accounting).
+    """
+
+    def __init__(self, miner: "HPrepostMiner", handles: "list[SegmentHandle]",
+                 weights=None):
+        self.miner = miner
+        self.handles = list(handles)
+        if weights is not None:
+            weights = np.asarray(weights, np.float64)
+            if len(weights) != len(self.handles):
+                raise ValueError(
+                    f"{len(weights)} segment weights for {len(self.handles)} handles"
+                )
+        self.weights = weights
+        self._prev: list | None = None
+        self.state_bytes = 0
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.handles)
+
+    def begin(self) -> None:
+        dev = self.miner.device
+        for h in self.handles:
+            if h.ready is not None:
+                # planes built on another stream (a compaction's): order
+                # this query's stream after the build, and mark the planes in
+                # use here so the allocator cannot hand their block out while
+                # these waves still read it, whenever the segment is dropped
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(h.ready)
+                h.planes.record_stream(stream)
+        self._prev = [h.singleton for h in self.handles]
+        self.state_bytes = 0
+
+    def dispatch(self, level: int, idx: np.ndarray, n_live: int):
+        m = self.miner
+        failures.fire("mine.wave")
+        new_states, parts = [], []
+        for h, prev in zip(self.handles, self._prev):
+            # level-2 parents are singleton ranks (per-segment rows); later
+            # levels read the parent state by global slot, shared by layout
+            local = np.stack([h.g2l[idx[0]] if level == 2 else idx[0],
+                              h.g2l[idx[1]], h.g2l[idx[2]]]).astype(np.int64)
+            new_s, sup_s = nlist_wave(
+                h.planes, prev, _to_device(local, m.device), n_live,
+                backend=m.backend, early_stop=False,
+            )
+            new_states.append(new_s)
+            parts.append(sup_s)
+        m.stage_counters["waves"] += 1
+        m.stage_counters["seg_waves"] = (
+            m.stage_counters.get("seg_waves", 0) + len(self.handles)
+        )
+        self._prev = new_states
+        self.state_bytes = sum(int(s.numel() * 4) for s in new_states)
+        # one device-to-host copy of every segment's supports, not S copies
+        return _HostRead(torch.stack(parts))
+
+    def collect(self, token) -> np.ndarray:
+        stacked = token.get()
+        if self.weights is not None:
+            return np.tensordot(self.weights, stacked.astype(np.float64), axes=1)
+        return np.sum(stacked, axis=0, dtype=np.int64)
 
 
 def _pow2(n: int) -> int:
@@ -305,14 +436,22 @@ class HPrepostMiner:
     # ---------------------------------------------------------------- prep
     def prepare(
         self, rows: np.ndarray, n_items: int, min_count_floor: int, *,
-        need_waves: bool = True,
+        need_waves: bool = True, flist: enc.FList | None = None,
     ) -> PreparedDB:
         """Run every threshold-floor stage once: Job 1 (histogram/F-list),
         Job 2 (PPC-tree), N-list pack, F2 scan. The result serves any
         ``mine_prepared`` at ``min_count >= min_count_floor``.
 
         ``need_waves=False`` stops after the F-list (for ``max_k == 1``
-        traffic, where the tree/N-lists are never consulted)."""
+        traffic, where the tree/N-lists are never consulted).
+
+        ``flist`` imposes an external item order instead of deriving it
+        support-descending from this database — the streaming path's global
+        stream order, which every segment must share so cross-segment
+        N-list ancestor relations agree. Job 1 is skipped then (the caller
+        already counted the batch, and no histogram kernel is launched),
+        and the result is marked ``support_ordered=False``: it can only be
+        mined through ``mine_prepared_segments``."""
         cfg = self.cfg
         dev = self.device
         stages: dict[str, float] = {}
@@ -328,10 +467,17 @@ class HPrepostMiner:
         rows_p = np.require(rows, np.int32, ["C"])
         rows_t = _host_tensor(rows_p).to(dev)
 
-        hist = item_histogram(rows_t, n_bins=n_items, backend=cfg.backend)
-        supports = hist.cpu().numpy()
-        self.stage_counters["job1"] += 1
-        fl = enc.build_flist(supports, min_count_floor)
+        if flist is None:
+            hist = item_histogram(rows_t, n_bins=n_items, backend=cfg.backend)
+            supports = hist.cpu().numpy()
+            self.stage_counters["job1"] += 1
+            fl = enc.build_flist(supports, min_count_floor)
+        else:
+            if flist.n_items != n_items:
+                raise ValueError(
+                    f"imposed flist covers {flist.n_items} items, database has {n_items}"
+                )
+            fl = flist
         stages["job1_flist"] = time.perf_counter() - t0
         K = fl.k
         if K > cfg.max_f1:
@@ -371,6 +517,7 @@ class HPrepostMiner:
             width=W, packed=packed, C=C,
             prep_bytes=prep_bytes, rows_flist_bytes=rows_flist_bytes,
             stage_times=stages, f1_only=not need_waves, n_shards=self.D,
+            support_ordered=flist is None,
         )
 
     # ---------------------------------------------------------------- waves
@@ -479,7 +626,8 @@ class HPrepostMiner:
         if not prepared.support_ordered:
             raise ValueError(
                 "PreparedDB was built with an imposed (stream-order) F-list; "
-                "its F-list is not a support-descending prefix structure"
+                "its F-list is not a support-descending prefix structure — "
+                "mine it through mine_prepared_segments"
             )
         if min_count < prepared.min_count_floor:
             raise ValueError(
@@ -598,6 +746,209 @@ class HPrepostMiner:
                 if cfg.early_stop and len(ranks):
                     # un-pipelined, the closure check lands *before* dispatch:
                     # doomed candidates never ship to the device at all
+                    sub = self._apriori_kept(ranks, surv_ranks)
+                    if sub is not None:
+                        stages["host_pruned_subset"] += float((~sub).sum())
+                        ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
+            else:
+                ranks = np.empty((0, 2), np.int32)
+                parents = np.empty(0, np.int64)
+                qarr = np.empty(0, np.int32)
+
+        stages["mining_waves"] = time.perf_counter() - t0
+        return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
+
+    def extend_with_sentinel(self, prepared: PreparedDB):
+        """``(planes, singleton)``: the prepared N-lists as the wave kernel
+        reads them, ``(3, K_s + 1, W_s)`` int32, with one all-padding rank row
+        ``(INT32_MAX, -1, 0)`` at index ``K_s`` — the slot
+        ``SegmentHandle.g2l`` routes globally-known-but-locally-absent items
+        to — and ``singleton = planes[2]`` (a contiguous plane). Built once
+        per segment; the queries never rebuild it."""
+        if prepared.packed is None:
+            raise ValueError("cannot extend an F1-only PreparedDB (no N-lists packed)")
+        K, W = prepared.fl.k, prepared.width
+        planes = torch.empty((3, K + 1, W), dtype=torch.int32, device=prepared.packed.device)
+        planes[:, :K] = prepared.packed[0].permute(2, 0, 1)
+        planes[0, K] = INF32
+        planes[1, K] = -1
+        planes[2, K] = 0
+        return planes, planes[2]
+
+    def mine_prepared_segments(
+        self,
+        handles: "list[SegmentHandle]",
+        items: np.ndarray,
+        supports: np.ndarray,
+        C: np.ndarray,
+        min_count: int,
+        *,
+        max_k: int | None | type(Ellipsis) = ...,
+        peak_base: int = 0,
+        executor=None,
+        weights=None,
+        seed=None,
+        seed_out=None,
+    ) -> PrepostResult:
+        """The k>2 wave loop over a *segmented* database (the streaming
+        reduce step): candidates are planned once against the global
+        F-lists (``items``/``supports`` in stream-rank order, ``C`` the
+        summed upper-triangular F2 matrix in the same rank space), each
+        wave launches the fused intersect kernel (B1) once per segment, and
+        the per-candidate supports are summed across segments before
+        thresholding — exact because segments partition the transactions,
+        so itemset supports are additive over them.
+
+        Every segment carries its own merged-N-list state chain between
+        waves (a segment is one partition's PPC forest); the *slot* layout
+        (``_pack_wave``) is global and shared, so parent reads at levels > 2
+        need no per-segment translation — only base/extension item indices
+        (and the level-2 singleton parents) route through each segment's
+        ``g2l``. Pipelining semantics match ``mine_prepared``.
+
+        ``executor`` abstracts *where* waves run: the default
+        ``LocalSegmentExecutor(self, handles)`` executes them in-process.
+
+        ``weights`` (or an executor carrying a ``weights`` attribute)
+        switches the cross-segment reduce to the float64 weighted sum of
+        time-decayed mining: ``supports``/``C``/``min_count`` are then read
+        as float accumulations and emitted supports are floats; the
+        per-segment device path is untouched (integer-exact), only the host
+        reduce and threshold run in float.
+
+        ``seed`` prunes with a standing query's previous waves (exact
+        integer mode only): a dict of per-itemset support *upper bounds*.
+        A candidate whose bound misses ``min_count`` is provably infrequent
+        and is dropped before dispatch (``host_pruned_seed``) along with the
+        whole subtree it would have opened; a candidate absent from the seed
+        is always kept, so the answer is bit-identical to an unseeded mine.
+        ``seed_out``, if a dict, collects the exact reduced support of every
+        candidate this mine settles (frequent or not).
+        """
+        cfg = self.cfg
+        max_k = cfg.max_k if max_k is ... else max_k
+        items_arr = np.asarray(items, np.int32)
+        if executor is None:
+            executor = LocalSegmentExecutor(self, handles, weights=weights)
+        elif weights is not None:
+            raise ValueError(
+                "pass decay weights through the executor, not alongside one"
+            )
+        weighted = getattr(executor, "weights", None) is not None
+        supports = np.asarray(supports, np.float64 if weighted else np.int64)
+        as_sup = float if weighted else int
+        K = len(items_arr)
+        stages = self.last_stage_times = {
+            "job1_flist": 0.0, "job2_ppc_pack": 0.0, "f2_scan": 0.0,
+            "mining_waves": 0.0,
+            "planned_candidates": 0.0,
+            "host_pruned_parent": 0.0, "host_pruned_subset": 0.0,
+            "host_pruned_seed": 0.0,
+        }
+        itemsets: dict[tuple[int, ...], int] = {}
+        freq = supports >= min_count
+        # result F-list stays support-descending (ties: item asc) whatever
+        # the stream-rank order is — the contract every miner reports
+        f_items = items_arr[freq]
+        f_sups = supports[freq]
+        order = np.lexsort((f_items, -f_sups))
+        flist_items = f_items[order]
+        for it, s in zip(flist_items.tolist(), f_sups[order].tolist()):
+            itemsets[(int(it),)] = as_sup(s)
+        peak = int(peak_base)
+        if K == 0 or max_k == 1 or not itemsets or executor.n_segments == 0:
+            return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
+
+        seed_keep = None
+        if seed is not None and not weighted:
+
+            def seed_keep(ranks_):
+                cand = np.sort(items_arr[ranks_], axis=1)
+                return np.fromiter(
+                    (seed.get(tuple(t), min_count) >= min_count
+                     for t in cand.tolist()),
+                    bool, len(cand),
+                )
+
+        pair_ok = (C + C.T) >= min_count
+        pair_packed = np.packbits(pair_ok, axis=1)
+        prefix_packed = np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
+        executor.begin()
+        qs, ps = np.nonzero(C >= min_count)
+        ranks = np.stack([qs, ps], axis=1).astype(np.int32)
+        parents = ps.astype(np.int64)
+        qarr = qs.astype(np.int32)
+        level = 2
+        pending = None  # (ranks, slot_of, token) of the wave in flight
+
+        t0 = time.perf_counter()
+        while len(ranks) or pending is not None:
+            if seed_keep is not None and len(ranks):
+                km = seed_keep(ranks)
+                if not km.all():
+                    stages["host_pruned_seed"] += float((~km).sum())
+                    ranks, parents, qarr = ranks[km], parents[km], qarr[km]
+            dispatched = None
+            if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
+                idx, slot_of, _ = self._pack_wave(ranks, parents, qarr)
+                stages["planned_candidates"] += float(len(ranks))
+                with trace.span("mine.wave", k=level, candidates=len(ranks),
+                                segments=executor.n_segments):
+                    token = executor.dispatch(level, idx, len(ranks))
+                dispatched = (ranks, parents, slot_of, token)
+                peak = max(peak, int(executor.state_bytes))
+                level += 1
+            if not cfg.pipeline_waves and dispatched is not None:
+                pending = (dispatched[0], dispatched[2], dispatched[3])
+                dispatched = None
+
+            surv_mask = None
+            surv_ranks = surv_slots = None
+            if pending is not None:
+                p_ranks, p_slots, p_token = pending
+                # the streaming reduce: per-candidate supports summed over
+                # segments (additivity over disjoint partitions), THEN
+                # thresholded — this blocks on the settled wave
+                with trace.span("mine.reduce", k=level - 1):
+                    host = executor.collect(p_token)
+                peak = max(peak, int(executor.state_bytes))
+                svals = host[p_slots]
+                keep = svals >= min_count
+                if seed_out is not None and len(p_ranks):
+                    # exact settled supports of EVERY candidate (dead ones
+                    # included — what the next refresh's seed prunes)
+                    all_items = np.sort(items_arr[p_ranks], axis=1)
+                    for t, s in zip(all_items.tolist(), svals.tolist()):
+                        seed_out[tuple(t)] = as_sup(s)
+                if keep.any():
+                    emit_items = np.sort(items_arr[p_ranks[keep]], axis=1)
+                    for t, s in zip(emit_items.tolist(), svals[keep].tolist()):
+                        itemsets[tuple(t)] = as_sup(s)
+                surv_mask = np.zeros(host.shape[0], bool)
+                surv_mask[p_slots[keep]] = True
+                surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
+                pending = None
+
+            if dispatched is not None:
+                d_ranks, d_parents, d_slot_of, d_token = dispatched
+                if surv_mask is not None:
+                    kept = surv_mask[d_parents]
+                    stages["host_pruned_parent"] += float((~kept).sum())
+                    d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
+                    if cfg.early_stop:
+                        sub = self._apriori_kept(d_ranks, surv_ranks)
+                        if sub is not None:
+                            stages["host_pruned_subset"] += float((~sub).sum())
+                            d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
+                pending = (d_ranks, d_slot_of, d_token)
+                ranks, parents, qarr = self._extensions(
+                    d_ranks, d_slot_of, pair_packed, prefix_packed, K
+                )
+            elif surv_mask is not None and not cfg.pipeline_waves:
+                ranks, parents, qarr = self._extensions(
+                    surv_ranks, surv_slots, pair_packed, prefix_packed, K
+                )
+                if cfg.early_stop and len(ranks):
                     sub = self._apriori_kept(ranks, surv_ranks)
                     if sub is not None:
                         stages["host_pruned_subset"] += float((~sub).sum())

@@ -35,6 +35,20 @@ snapshots. ``--stats`` dumps the service's operator snapshot,
 
     PYTHONPATH=src python -m repro_torch.launch.mine --serve --snapshot-dir /tmp/snaps \\
         --dataset mushroom --sweep 0.4,0.3,0.2 --device cpu
+
+``--append N`` is the streaming path: the dataset is split into N batches
+and ingested one by one (each batch is prepared alone, as a segment of a
+live segmented database) and the sweep is served from the stream. With
+``--window W`` only the last W batches are retained (older segments
+expire at append time) and the windowed answer is checked against a
+one-shot mine over exactly the window's rows; ``--watch`` registers a
+standing query first, prints the ``MineDiff`` each append delivers and
+checks that the diffs replay to the final answer. With ``--snapshot-dir``
+a second run with ``--expect-warm`` fails unless every segment was restored
+from its snapshot:
+
+    PYTHONPATH=src python -m repro_torch.launch.mine --dataset mushroom --scale 0.05 \\
+        --append 4 --window 2 --watch --min-sup 0.3 --device cpu
 """
 from __future__ import annotations
 
@@ -202,6 +216,107 @@ def _serve(args, rows, n_items: int, name: str, spec: MineSpec):
     return results
 
 
+def _append(args, rows, n_items: int, name: str, spec: MineSpec):
+    """Streaming path: split the dataset into ``--append`` batches, ingest
+    them through the engine's stream, serve the sweep from the live
+    SegmentedDB, and (with ``--expect-warm``) verify a replayed process
+    restored every segment from the snapshot store with zero prep.
+
+    ``--window W`` turns the stream into a sliding window over the last W
+    batches (older segments expire at append time) and verifies the
+    windowed answer bit-identical to a one-shot mine over exactly the
+    window's rows. ``--watch`` registers a standing query up front and
+    prints the ``MineDiff`` each append delivers; at the end the diff
+    stream replayed from empty must equal the final answer."""
+    import numpy as np
+
+    engine = MiningEngine(device=args.device, snapshot_dir=args.snapshot_dir)
+    sspec = None
+    if args.window:
+        from repro_torch.mining.stream import StreamSpec
+
+        sspec = StreamSpec(window_batches=args.window)
+    watch = None
+    if args.watch:
+        engine.stream(n_items=n_items, spec=spec, stream_spec=sspec)
+        watch = engine.register_standing(spec)
+        print(f"  watch: standing query registered "
+              f"({watch.diffs[-1].total} itemsets at register)")
+    batches = np.array_split(rows, args.append)
+    for i, batch in enumerate(batches):
+        st = engine.append(batch, n_items, spec=spec, stream_spec=sspec)
+        line = (
+            f"  append[{i}]: +{st['rows']} rows -> {st['segments']} segment(s), "
+            f"{st['new_items']} new item(s), prep={st['prep_source']}, "
+            f"{st['append_s'] * 1e3:.1f}ms"
+        )
+        if args.window:
+            line += f", expired={st['expired']} (-{st['expired_rows']} rows)"
+        print(line)
+        if watch is not None and watch.diffs[-1].cause != "register":
+            d = watch.diffs[-1]
+            print(f"    diff[{d.seq}] {d.cause}: +{len(d.entered)} "
+                  f"-{len(d.left)} ~{len(d.changed)} -> {d.total} itemsets "
+                  f"over {d.n_rows} rows ({d.latency_s * 1e3:.1f}ms)")
+    fracs = [float(s) for s in args.sweep.split(",")] if args.sweep else [args.min_sup]
+    results = []
+    for frac in fracs:
+        res = engine.submit_stream(spec.with_(min_sup=frac))
+        results.append(res)
+        print(f"  min_sup={frac:g} -> {res.summary()} "
+              f"[{res.service_stats['stream_segments']} segments]")
+    stream = engine.stream()
+    s = stream.stats
+    line = (
+        f"{name}: {len(rows)} tx streamed as {args.append} batches; "
+        f"seg_prepares={s['seg_prepares']} snapshot_hits={s['seg_snapshot_hits']} "
+        f"compactions={s['compactions']}"
+    )
+    if args.window:
+        line += f" expires={s['expires']} expired_rows={s['expired_rows']}"
+    print(line)
+    if args.window:
+        # the windowed answer must be bit-identical to a one-shot mine over
+        # exactly the window's rows (the continuous-mining anchor)
+        wrows = np.concatenate(batches[-args.window:])
+        ref = engine.submit(wrows, n_items, spec)
+        live = engine.submit_stream(spec)
+        if live.n_rows != len(wrows) or live.itemsets != ref.itemsets:
+            raise SystemExit(
+                f"windowed mine diverged from the one-shot over the window: "
+                f"{len(live.itemsets)} itemsets over {live.n_rows} rows vs "
+                f"{len(ref.itemsets)} over {len(wrows)}"
+            )
+        print(f"window parity verified: last {args.window} batches "
+              f"({len(wrows)} rows), {len(live.itemsets)} itemsets bit-identical")
+    if watch is not None:
+        from repro_torch.mining.continuous import replay_diffs
+
+        final = engine.submit_stream(spec)
+        replayed = replay_diffs(watch.diffs)
+        if replayed != watch.latest or replayed != final.itemsets:
+            raise SystemExit(
+                f"standing diff stream does not replay to the live answer: "
+                f"{len(replayed)} vs {len(final.itemsets)} itemsets"
+            )
+        print(f"watch verified: {len(watch.diffs)} diffs replay from empty "
+              f"to the live answer ({len(replayed)} itemsets); "
+              f"seed-pruned {s['seed_pruned_candidates']} candidate(s)")
+    if args.expect_warm:
+        # every already-seen segment must restore from its snapshot — a
+        # single rebuilt segment means the warm start did not hold
+        if s["seg_prepares"] != 0 or s["seg_snapshot_hits"] < args.append:
+            raise SystemExit(
+                f"expected a segment warm start but seg_prepares="
+                f"{s['seg_prepares']}, seg_snapshot_hits={s['seg_snapshot_hits']} "
+                f"(appends={args.append}, snapshot_misses={s['seg_snapshot_misses']})"
+            )
+        print("warm start verified: all segments restored from snapshots")
+    if args.tune or args.expect_plans:
+        _report_plans(engine, args.expect_plans)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="hprepost", choices=list_miners())
@@ -229,8 +344,27 @@ def main(argv=None):
     )
     ap.add_argument(
         "--expect-warm", action="store_true",
-        help="with --serve: fail unless the whole load was served from "
-             "snapshots with zero prep stages",
+        help="with --serve / --append: fail unless the whole load was served "
+             "from snapshots with zero prep stages",
+    )
+    ap.add_argument(
+        "--append", type=int, default=0, metavar="N",
+        help="streaming path: split the dataset into N batches, ingest them "
+             "one by one (each preps only its own segment), and serve "
+             "--sweep/--min-sup from the live segmented database",
+    )
+    ap.add_argument(
+        "--window", type=int, default=0, metavar="W",
+        help="with --append: sliding window — retain only the last W "
+             "batches (older segments expire exactly at append time) and "
+             "verify the windowed answer bit-identical to a one-shot mine "
+             "over the window's rows",
+    )
+    ap.add_argument(
+        "--watch", action="store_true",
+        help="with --append: register a standing query before ingest, print "
+             "the MineDiff each append delivers, and verify the diff stream "
+             "replays from empty to the final live answer",
     )
     ap.add_argument(
         "--stats", action="store_true",
@@ -288,8 +422,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.expect_plans and not args.tune:
         ap.error("--expect-plans needs --tune")
-    if args.expect_warm and not args.serve:
-        ap.error("--expect-warm checks the service's warm start; use it with --serve")
+    if args.append and args.serve:
+        ap.error("--append and --serve are separate paths; pick one")
+    if (args.window or args.watch) and not args.append:
+        ap.error("--window/--watch need --append N (the streaming path)")
+    if args.expect_warm and not (args.serve or args.append):
+        ap.error("--expect-warm checks a warm start; use it with --serve or --append")
     if args.stats and not args.serve:
         ap.error("--stats dumps the service snapshot; use it with --serve")
     if (args.stats_interval or args.trace) and not args.serve:
@@ -314,6 +452,8 @@ def main(argv=None):
     )
     if args.serve:
         return _serve(args, rows, n_items, name, spec)
+    if args.append:
+        return _append(args, rows, n_items, name, spec)
     engine = MiningEngine(device=args.device, snapshot_dir=args.snapshot_dir)
     if args.sweep:
         fracs = [float(s) for s in args.sweep.split(",")]

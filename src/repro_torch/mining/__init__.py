@@ -21,6 +21,10 @@ lazily from here): ``MiningService`` (submit -> Future, batching window,
 drain), ``GroupScheduler`` (cross-group prepare/mine overlap, the prepare
 on a CUDA stream of its own) and ``SnapshotStore`` (cross-process
 PreparedDB persistence; also reachable as ``MiningEngine(snapshot_dir=...)``).
+The streaming layer, ``repro_torch.mining.stream`` (``StreamSpec``,
+``StreamingMiner``, re-exported lazily), and continuous mining,
+``repro_torch.mining.continuous``, are reached through
+``MiningEngine.append`` / ``submit_stream`` / ``register_standing``.
 """
 import torch
 
@@ -65,6 +69,8 @@ __all__ = [
     "MiningService",
     "PATTERN_KINDS",
     "SnapshotStore",
+    "StreamSpec",
+    "StreamingMiner",
     "get_miner",
     "list_miners",
     "mine",
@@ -73,10 +79,15 @@ __all__ = [
 
 
 def __getattr__(name: str):
-    # the service spins thread pools and imports back through this package:
-    # loaded on first touch, not by a bare ``import repro_torch.mining``
+    # the serving and streaming layers spin thread pools and import back
+    # through this package: loaded on first touch, not by a bare
+    # ``import repro_torch.mining``
     if name in ("MiningService", "GroupScheduler"):
         import repro_torch.mining.service as _service
 
         return getattr(_service, name)
+    if name in ("StreamSpec", "StreamingMiner"):
+        import repro_torch.mining.stream as _stream
+
+        return getattr(_stream, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -37,12 +37,21 @@ and results carry ``service_stats["prep_source"] == "snapshot"``. The
 store requires the LRU to be enabled (``prep_cache_bytes > 0``) — a loaded
 snapshot lands in the LRU like any other entry.
 
+Streaming ingestion (``repro_torch.mining.stream``): ``append`` folds a
+new transaction batch into a named live ``SegmentedDB`` as its own
+prepared segment (the paper's map step, run on the new partition only)
+and ``submit_stream`` mines the segmented database via summed
+per-segment counts + cross-segment waves (the reduce) — no full rebuild
+when data arrives, and per-segment snapshots warm-start a replayed
+stream. ``register_standing`` attaches a continuous query
+(``repro_torch.mining.continuous``) that is re-answered with a
+``MineDiff`` after every append or window expiry.
+
 The engine is thread-safe (one coarse lock over planning state), so the
 serving layer (``repro_torch.mining.service``) overlaps one group's
 prepare, on a prep thread and its own CUDA stream, with another group's
-waves. The reference's streaming, continuous and distributed entry points
-(``stream``, ``append``, ``submit_stream``, ``register_standing``,
-``distribute``, ``stream_stats``) come with those layers.
+waves. The reference's ``distribute`` (worker processes behind a
+coordinator) is not ported yet.
 """
 from __future__ import annotations
 
@@ -146,6 +155,9 @@ class MiningEngine:
         # mutation through pre-existing writeable views).
         self._fp_memo: dict[int, tuple[weakref.ref, tuple, bool, str]] = {}
         self._fp_sweep_at = 1024
+        # live streaming databases (repro_torch.mining.stream), by name; each
+        # StreamingMiner serializes its own appends/queries internally
+        self._streams: dict[str, object] = {}
         # the session's latency/counter registry (mining.telemetry), shared
         # by every layer stacked on this engine. Execution-orthogonal: never
         # part of any prep/device/snapshot key.
@@ -203,7 +215,9 @@ class MiningEngine:
         """Content identity of a database (planning must never share prep
         across different data, whatever object carries it)."""
         arr = np.ascontiguousarray(arr)
-        digest = hashlib.sha1(arr.tobytes()).hexdigest()
+        # the reference's digest of ``arr.tobytes()``, hashed in place: the
+        # rows are not copied first
+        digest = hashlib.sha1(memoryview(arr).cast("B") if arr.size else b"").hexdigest()
         return (arr.shape, str(arr.dtype), digest)
 
     @staticmethod
@@ -479,6 +493,82 @@ class MiningEngine:
         res.service_stats["prep_source"] = "built"
         self._observe_result(res)
         return res
+
+    # ------------------------------------------------------------ streaming
+    def stream(self, name: str = "default", *, n_items: int | None = None,
+               spec: MineSpec | None = None, stream_spec=None):
+        """The named ``StreamingMiner``, created on first touch (creation
+        needs ``n_items``; ``spec`` fixes its device config, ``stream_spec``
+        its segmentation/compaction knobs). Segments warm-start from the
+        engine's snapshot store when one is bound."""
+        from repro_torch.mining.stream import StreamingMiner
+
+        with self._lock:
+            s = self._streams.get(name)
+            if s is None:
+                if n_items is None:
+                    raise ValueError(
+                        f"stream {name!r} does not exist yet; pass n_items to create it"
+                    )
+                s = StreamingMiner(
+                    self, n_items, spec=spec, stream_spec=stream_spec, name=name
+                )
+                self._streams[name] = s
+            elif n_items is not None and n_items != s.n_items:
+                raise ValueError(
+                    f"stream {name!r} was created with n_items={s.n_items}, got {n_items}"
+                )
+            return s
+
+    def append(self, rows, n_items: int | None = None, *, stream: str = "default",
+               spec: MineSpec | None = None, stream_spec=None) -> dict:
+        """Ingest one transaction batch into the named stream (the map
+        step runs on the new batch only — earlier segments are never
+        re-prepared). Returns per-append telemetry."""
+        return self.stream(
+            stream, n_items=n_items, spec=spec, stream_spec=stream_spec
+        ).append(rows)
+
+    def submit_stream(self, spec: MineSpec, *, stream: str = "default") -> MineResult:
+        """Mine the named stream's live ``SegmentedDB`` (global F1/F2 from
+        summed per-segment counts, cross-segment waves)."""
+        with self._lock:
+            s = self._streams.get(stream)
+            if s is None:
+                raise KeyError(f"no stream named {stream!r}; engine.append(...) first")
+            self.stats["submits"] += 1
+        return s.mine(spec)
+
+    def register_standing(self, spec: MineSpec, *, stream: str = "default"):
+        """Register a standing query on the named stream: mined once now,
+        then re-answered with a ``MineDiff`` after every append/expiry.
+        Returns the ``StandingQuery`` handle (``latest``, ``diffs``,
+        ``next_diff() -> Future``)."""
+        with self._lock:
+            s = self._streams.get(stream)
+            if s is None:
+                raise KeyError(f"no stream named {stream!r}; engine.append(...) first")
+        return s.register(spec)
+
+    def cancel_standing(self, query, *, stream: str = "default") -> None:
+        """Cancel a standing query returned by ``register_standing``."""
+        with self._lock:
+            s = self._streams.get(stream)
+            if s is None:
+                raise KeyError(f"no stream named {stream!r}")
+        s.cancel(query)
+
+    def stream_stats(self) -> dict:
+        """Per-stream telemetry snapshot: ``{name: stats_dict}`` for every
+        live streaming database (operator surface)."""
+        with self._lock:
+            streams = dict(self._streams)
+        out = {}
+        for name, s in streams.items():
+            stats = getattr(s, "stats", None)
+            if isinstance(stats, dict):
+                out[name] = dict(stats)
+        return out
 
     # ------------------------------------------------------ planned batches
     def _plan_key(self, req: MineRequest):

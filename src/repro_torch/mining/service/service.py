@@ -22,7 +22,8 @@ typed error, whatever fails:
     queued one, the oldest-deadline request is shed instead.
   - QoS: ``spec.priority`` orders device groups, ``spec.deadline_s``
     drops late requests with ``DeadlineExceeded`` before device work
-    (both enforced by the scheduler).
+    (both enforced by the scheduler; stream operations check their
+    deadline right before executing).
   - Crash-proof worker: any batch-serving failure (prep-thread death,
     executor shutdown, chaos injection) resolves every Future the batch
     owns with that error and the loop continues (``worker_restarts``
@@ -33,18 +34,19 @@ Telemetry rides each ``MineResult.service_stats``: queue time, batch
 size, where the prep came from (built / LRU cache / snapshot) and whether
 it overlapped an earlier group's mining. ``stats`` stays the counter dict
 *and* is callable: ``service.stats()`` returns the full operator snapshot
-(admission/shed/deadline counters, scheduler + engine stats, latency
-histograms). ``drain()`` blocks until every accepted request has resolved;
-``close()`` drains — or, with ``drain=False``, fails queued requests with
-``ServiceClosed`` — and stops the worker (also a context manager).
+(admission/shed/deadline counters, scheduler + engine + per-stream stats,
+latency histograms). ``drain()`` blocks until every accepted request has
+resolved; ``close()`` drains — or, with ``drain=False``, fails queued
+requests with ``ServiceClosed`` — and stops the worker (also a context
+manager).
 
-Not ported yet: the reference's stream lane (``append``,
-``submit_stream``, ``register_standing``, ``cancel_standing``,
-``distribute`` and the ``_Pending.kind == "stream"`` branch of
-``_serve``), which needs ``repro_torch.mining.stream``. Until then the
-snapshot's ``streams`` section is ``{}`` and its ``retries`` /
-``respawns`` counters (distributed streams' RPC retries and worker
-respawns) are 0.
+Streaming traffic (``repro_torch.mining.stream``) rides the same queue:
+``append``, ``submit_stream``, ``register_standing`` and
+``cancel_standing`` return Futures and execute on the worker thread, in
+arrival order relative to everything in their batch, so a query submitted
+after an append is guaranteed to see the new segment. On CUDA they run on
+the worker thread's current stream, between the scheduler's mining
+chunks. The reference's ``distribute`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ from repro_torch.fault import failures
 from repro_torch.mining.engine import MineRequest, MiningEngine
 from repro_torch.mining.result import MineResult
 from repro_torch.mining.service.admission import (
-    AdmissionQueue, Overloaded, ServiceClosed,
+    AdmissionQueue, DeadlineExceeded, Overloaded, ServiceClosed,
 )
 from repro_torch.mining.service.scheduler import GroupScheduler
 from repro_torch.mining.spec import MineSpec
@@ -71,7 +73,7 @@ from repro_torch.mining.telemetry import trace
 
 @dataclasses.dataclass(eq=False)  # identity ==: AdmissionQueue removes by it,
 class _Pending:                   # and field-wise eq chokes on array payloads
-    req: MineRequest
+    req: MineRequest | None  # None for stream operations
     future: Future
     submitted_at: float
     deadline_at: float | None = None  # monotonic instant; admission + QoS
@@ -79,6 +81,8 @@ class _Pending:                   # and field-wise eq chokes on array payloads
     nbytes: int = 0  # admission byte accounting (rows payload)
     released: bool = False  # accounting done exactly once (see _finish)
     trace_id: int | None = None  # root span id when a tracer is attached
+    kind: str = "mine"  # "mine" | "stream" (append / stream query / standing)
+    run: object = None  # stream ops: zero-arg callable executed in order
 
 
 class _ServiceStats(dict):
@@ -126,8 +130,7 @@ class MiningService:
             self._stats_snapshot,
             requests=0, batches=0, max_batch=0,
             worker_restarts=0,  # batches whose serve crashed (loop survived)
-            # stream ops expired before running (0 until the stream lane)
-            stream_deadline_dropped=0,
+            stream_deadline_dropped=0,  # stream ops expired before running
         )
         self._q = AdmissionQueue(
             max_depth=max_queue_depth, max_bytes=max_queue_bytes,
@@ -160,6 +163,19 @@ class MiningService:
     def submit_many(self, requests: Sequence[MineRequest]) -> list[Future]:
         return [self.submit(r.rows, r.n_items, r.spec) for r in requests]
 
+    def _submit_stream_op(self, run, *, spec: MineSpec | None = None,
+                          nbytes: int = 0) -> Future:
+        deadline_at = (
+            time.monotonic() + spec.deadline_s
+            if spec is not None and spec.deadline_s is not None else None
+        )
+        return self._enqueue(_Pending(
+            None, Future(), time.monotonic(), kind="stream", run=run,
+            deadline_at=deadline_at,
+            priority=spec.priority if spec is not None else 0,
+            nbytes=int(nbytes),
+        ))
+
     def _enqueue(self, p: _Pending) -> Future:
         """Admission: the closed/dead check, the chaos point, and the queue
         offer are one atomic step under ``_cv`` — a request is either
@@ -186,9 +202,10 @@ class MiningService:
             # the request's root span: opened at submit time, closed when
             # its Future resolves in _serve (or on a crashed batch)
             p.trace_id = rec.open(
-                "request", t0=p.submitted_at, kind="mine", priority=p.priority
+                "request", t0=p.submitted_at, kind=p.kind, priority=p.priority
             )
-            p.req.trace_id = p.trace_id
+            if p.req is not None:
+                p.req.trace_id = p.trace_id
         # resolve losers outside the lock (their callbacks run inline)
         for s in shed:
             if rec is not None and s.trace_id is not None:
@@ -215,6 +232,50 @@ class MiningService:
         """The paper's threshold sweep, submitted concurrently — the batch
         window coalesces it into one shared-prep group."""
         return [self.submit(rows, n_items, spec.with_(min_sup=s)) for s in min_sups]
+
+    def append(self, rows, n_items: int | None = None, *, stream: str = "default",
+               spec: MineSpec | None = None, stream_spec=None) -> Future:
+        """Enqueue a streaming ingest (``engine.append``); the Future
+        resolves to the append telemetry dict. Stream operations execute
+        in arrival order relative to each other and to mining requests in
+        the same batch, so a query submitted after an append observes it.
+
+        The batch is copied HERE, at submit time — execution happens after
+        the batching window, and a caller reusing its array for the next
+        batch must not retroactively change what this one ingests."""
+        rows = np.array(rows, np.int32, copy=True)
+        return self._submit_stream_op(
+            lambda: self.engine.append(
+                rows, n_items, stream=stream, spec=spec, stream_spec=stream_spec
+            ),
+            nbytes=rows.nbytes,
+        )
+
+    def submit_stream(self, spec: MineSpec, *, stream: str = "default") -> Future:
+        """Enqueue a query against the named stream's live ``SegmentedDB``;
+        the Future resolves to its ``MineResult``."""
+        return self._submit_stream_op(
+            lambda: self.engine.submit_stream(spec, stream=stream), spec=spec
+        )
+
+    def register_standing(self, spec: MineSpec, *, stream: str = "default") -> Future:
+        """Enqueue a standing-query registration on the named stream; the
+        Future resolves to the ``StandingQuery`` handle (its initial
+        answer already delivered as diff 0). Registration rides the same
+        arrival-order stream lane as ``append``/``submit_stream``, so a
+        query registered after an append observes it — and every
+        subsequent append's diff is delivered before that append's own
+        Future resolves."""
+        return self._submit_stream_op(
+            lambda: self.engine.register_standing(spec, stream=stream), spec=spec
+        )
+
+    def cancel_standing(self, query, *, stream: str = "default") -> Future:
+        """Enqueue a standing-query cancellation (arrival order: diffs
+        already in flight ahead of it still deliver)."""
+        return self._submit_stream_op(
+            lambda: self.engine.cancel_standing(query, stream=stream)
+        )
 
     # ------------------------------------------------------------ accounting
     @staticmethod
@@ -245,10 +306,12 @@ class MiningService:
         each layer's full dict for drill-down. ``histograms`` is the shared
         telemetry registry's latency-distribution view (name -> count /
         sum / min / max / p50 / p95 / p99 / sparse buckets); ``telemetry``
-        carries its counters, gauges, and schema version. ``streams`` (and
-        with it retries / respawns) stays empty until the stream lane is
-        ported."""
+        carries its counters, gauges, and schema version; ``streams`` each
+        live stream's stats. ``retries`` / ``respawns`` sum the streams'
+        ``rpc_retries`` / ``respawns``, which only distributed databases
+        carry: 0 for local streams."""
         service = {k: v for k, v in self.stats.items()}
+        streams = self.engine.stream_stats()
         adm = self._q.info()
         sched = dict(self.scheduler.stats)
         tel = self.engine.telemetry.snapshot()
@@ -262,15 +325,15 @@ class MiningService:
                 "shed": adm["shed"],
                 "deadline_dropped": sched.get("deadline_dropped", 0)
                 + service["stream_deadline_dropped"],
-                "retries": 0,
-                "respawns": 0,
+                "retries": sum(int(s.get("rpc_retries", 0)) for s in streams.values()),
+                "respawns": sum(int(s.get("respawns", 0)) for s in streams.values()),
             },
             "service": service,
             "admission": adm,
             "scheduler": sched,
             "engine": {"stats": dict(self.engine.stats),
                        "cache": self.engine.cache_info()},
-            "streams": {},
+            "streams": streams,
         }
 
     # ------------------------------------------------------------- lifecycle
@@ -398,10 +461,44 @@ class MiningService:
                 if p.trace_id is not None:
                     rec.add("admission.wait", p.submitted_at, t_start,
                             parent=p.trace_id)
-        try:
-            results = self.scheduler.run([p.req for p in batch], return_exceptions=True)
-        except BaseException as e:  # scheduler must not fail a batch silently
-            results = [e] * len(batch)
+        # execute in arrival order: contiguous runs of mining requests go
+        # through the scheduler as one planned sub-batch, stream operations
+        # (appends / stream queries / standing registrations) run inline
+        # between them — a query that arrived after an append must observe
+        # the appended segment
+        results: list = [None] * len(batch)
+        chunk: list[int] = []
+
+        def flush_chunk():
+            if not chunk:
+                return
+            try:
+                out = self.scheduler.run(
+                    [batch[j].req for j in chunk], return_exceptions=True
+                )
+            except BaseException as e:  # scheduler must not fail a batch silently
+                out = [e] * len(chunk)
+            for j, r in zip(chunk, out):
+                results[j] = r
+            chunk.clear()
+
+        for i, p in enumerate(batch):
+            if p.kind == "mine":
+                chunk.append(i)
+                continue
+            flush_chunk()
+            if p.deadline_at is not None and time.monotonic() > p.deadline_at:
+                self.stats["stream_deadline_dropped"] += 1
+                results[i] = DeadlineExceeded(
+                    "deadline passed before the stream operation ran"
+                )
+                continue
+            try:
+                with trace.span("stream.op", parent=p.trace_id):
+                    results[i] = p.run()
+            except BaseException as e:
+                results[i] = e
+        flush_chunk()
         req_hist = self.engine.telemetry.histogram("service.request_s")
         for p, res in zip(batch, results):
             t_res = time.monotonic()

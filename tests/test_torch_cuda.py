@@ -394,3 +394,135 @@ def test_service_launch_counts_exact_with_overlap(cuda):
         counts.setdefault(overlap, []).append(got)
         assert [r.itemsets for r in out] == _engine_answers(dbs, fracs)
     assert counts[True][0] == counts[True][1] == counts[False][0]
+
+
+# ------------------------------------------------ the streaming path on the card
+def _segment(cuda, seed=3, n_tx=400, n_items=12):
+    """One segment as the stream builds it: a prep under an imposed F-list
+    of every item present (no histogram launch) and its planes with the
+    sentinel row at K. -> (planes, singleton, K)."""
+    rows = random_db(np.random.default_rng(seed), n_tx, n_items, 6)
+    hist = enc.item_support(rows, n_items)
+    items = np.flatnonzero(hist > 0).astype(np.int32)
+    fl = enc.FList(items=items, supports=hist[items].astype(np.int64), n_items=n_items,
+                   min_count=1)
+    miner = HPrepostMiner(cuda, HPrepostConfig())
+    prep = miner.prepare(rows, n_items, 1, flist=fl)
+    assert not prep.support_ordered
+    planes, singleton = miner.extend_with_sentinel(prep)
+    return planes, singleton, fl.k
+
+
+@pytest.mark.parametrize("on_sentinel", ["base", "extension", "both"])
+def test_sentinel_row_through_the_wave_kernel(cuda, on_sentinel):
+    """Waves over a segment that lacks some of the stream's items, laid out
+    as ``LocalSegmentExecutor`` lays them out: every global rank goes
+    through ``g2l``, absent ranks to the all-padding sentinel row K. A
+    candidate whose base, extension or both items are absent gets a zero
+    state row and support 0 from B1, at level 2 and at level 3 (whose
+    parent is a level-2 slot), and B1 agrees with its plain version."""
+    import repro_torch.kernels as kernels
+
+    planes, singleton, K = _segment(cuda)
+    assert planes.shape[1] == K + 1
+    sentinel = torch.tensor([INF, -1, 0], dtype=torch.int32)[:, None]
+    assert torch.equal(planes[:, K].cpu(), sentinel.expand(3, planes.shape[2]))
+    # a global rank space of K + 4 ranks: every third rank is absent here
+    G = K + 4
+    absent = np.zeros(G, bool)
+    absent[::3] = True
+    g2l = np.full(G, K, np.int64)
+    g2l[~absent] = np.arange(int((~absent).sum())) % K
+    miner = HPrepostMiner(cuda, HPrepostConfig(candidate_unit=8))
+
+    def run(ranks, parents, prev, level):
+        idx, _, _ = miner._pack_wave(ranks, parents, ranks[:, 0].copy())
+        local = np.stack([g2l[idx[0]] if level == 2 else idx[0], g2l[idx[1]], g2l[idx[2]]])
+        local_t, n_live = T(local, cuda), len(ranks)
+        kernels.reset_launches()
+        got = nlist_wave_cuda(planes, prev, local_t, n_live)
+        assert kernels.launches()["nlist_intersect"] == 1
+        want = nlist_wave_ref(planes, prev, local_t, n_live)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        base_out, ext_out = absent[ranks[:, 1]], absent[ranks[:, 0]]
+        case = {"base": base_out & ~ext_out, "extension": ext_out & ~base_out,
+                "both": base_out & ext_out}[on_sentinel]
+        assert case.any()
+        hit = torch.from_numpy(np.flatnonzero(case)).to(cuda)
+        assert int(got[1][hit].abs().sum()) == 0 and int(got[0][hit].abs().sum()) == 0
+        assert int(got[1][:n_live].sum()) > 0  # the present candidates merged something
+        return got[0]
+
+    qs, ps = np.nonzero(np.triu(np.ones((G, G), bool), 1))
+    ranks2 = np.stack([qs, ps], axis=1).astype(np.int32)
+    state = run(ranks2, ps.astype(np.int64), singleton, 2)
+    # level 3: slot s = (q, p) extended by q2 < q; base q, parent slot s
+    s3, q2 = np.nonzero(np.arange(G)[None, :] < qs[:, None])
+    ranks3 = np.concatenate([q2[:, None], ranks2[s3]], axis=1).astype(np.int32)
+    run(ranks3, s3.astype(np.int64), state, 3)
+    torch.cuda.synchronize()
+
+
+def _stream_batches(n=4, scale=0.2):
+    rows, n_items = load("mushroom", scale=scale)
+    return np.array_split(rows, n), n_items
+
+
+def test_segment_waves_launch_b1_only(cuda):
+    """Stream queries with early stop on run B1 once per segment per wave
+    and never B2 (segment supports are partial), appends launch B4 once and
+    B3 never, and the answers equal the CPU port's."""
+    import repro_torch.kernels as kernels
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    batches, n_items = _stream_batches()
+    spec = MineSpec(algorithm="hprepost", early_stop=True)
+    gpu, cpu = MiningEngine(device=cuda), MiningEngine(device="cpu")
+    for b in batches:
+        kernels.reset_launches()
+        gpu.append(b, n_items, spec=spec)
+        assert kernels.launches() == {"nlist_intersect": 0, "nlist_intersect_es": 0,
+                                      "histogram": 0, "cooccur": 1}
+        cpu.append(b, n_items, spec=spec)
+    sm = gpu.stream()
+    for f in (0.3, 0.15):
+        w0, s0 = sm.miner.stage_counters["waves"], sm.miner.stage_counters.get("seg_waves", 0)
+        kernels.reset_launches()
+        res = gpu.submit_stream(spec.with_(min_sup=f))
+        got = kernels.launches()
+        waves = sm.miner.stage_counters["waves"] - w0
+        assert waves > 0
+        assert got["nlist_intersect"] == sm.miner.stage_counters["seg_waves"] - s0 == waves * 4
+        assert got["nlist_intersect_es"] == got["histogram"] == got["cooccur"] == 0
+        assert res.itemsets == cpu.submit_stream(spec.with_(min_sup=f)).itemsets
+
+
+def test_async_compaction_racing_a_served_query(cuda):
+    """An async compaction builds its merged segment on its own stream while
+    the service serves stream queries on its worker's stream: every answer
+    equals the uncompacted one, and the merged segment carries the event
+    its queries wait on. Two rounds: the second merges segments appended
+    after the first merge, while queries read the first merge's planes."""
+    from repro_torch.mining import MineSpec, MiningService
+    from repro_torch.mining.stream import StreamSpec
+
+    batches, n_items = _stream_batches(n=16)
+    spec = MineSpec(algorithm="hprepost", min_sup=0.15)
+    with MiningService(device=cuda, batch_window_s=0.0) as svc:
+        sm = svc.engine.stream(n_items=n_items, spec=spec,
+                               stream_spec=StreamSpec(compact_async=True, compact_fanin=8,
+                                                      max_segments=16))
+        for r in range(2):
+            for f in [svc.append(b) for b in batches[8 * r:8 * r + 8]]:
+                f.result(timeout=120)
+            want = svc.submit_stream(spec).result(timeout=120).itemsets
+            sm.compact(wait=False)
+            racing = [svc.submit_stream(spec) for _ in range(6)]
+            assert all(f.result(timeout=120).itemsets == want for f in racing)
+            sm.flush()
+            assert svc.submit_stream(spec).result(timeout=120).itemsets == want
+            assert sm.stats["compactions"] == r + 1 and sm.stats["compact_errors"] == 0
+            merged = [s for s in sm.db.segments if s.n_batches > 1]
+            assert merged and all((s.ready is not None) == (cuda.type == "cuda") for s in merged)
+        sm.close()
+    torch.cuda.synchronize()

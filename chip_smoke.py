@@ -63,8 +63,26 @@ Phases, in order; any failure raises and exits non-zero:
      appends, stream queries and a standing query through one
      ``MiningService`` from two producer threads, and an async compaction
      racing a served query.
-Then one JSON line describing the kernels (launches: phases 4, 6, 7 and 8),
-and last the device line.
+  9. HPrepost on a mesh (``MiningEngine(mesh=make_mesh(shape, axes,
+     devices=[cuda:0] * n), prep_cache_bytes=0)``): mushroom@0.15,
+     pumsb@0.15 and kosarak@0.01 at full scale on (2, 1), (4, 1) and (4, 2)
+     with locality dispatch, on (2, 2) with the shuffle (through
+     ``HPrepostMiner``: ``MineSpec`` has no locality knob) and on (1, 2)
+     (early stop, B2 per candidate group). Every answer equals the host
+     PrePost miner's and phase 4's 1×1 answer; each prepare launches B3 and
+     B4 once per data shard, each wave one wave kernel per position (B1
+     when D > 1, B2 on (1, 2)); the card's D-shard ``to_host()`` payload
+     equals a CPU mesh's on mushroom (every D) and pumsb (D = 2, 4). Then
+     a (2, 1) snapshot warm-starting a (2, 2) engine with no prepare and a
+     (1, 1) engine rebuilding, one (2, 2) ``MiningService`` batch, and a
+     4-batch mushroom stream on (2, 1). Each mine prints its wall, the
+     per-shard packed bytes and tree nodes (the paper's per-reducer
+     memory), peak device memory, launches and the number of distinct cards
+     (every position shares one card here, so nothing of an interconnect
+     is measured); last, each dataset warm on (1, 1) and (4, 2) under
+     torch.profiler (device busy time and idle share).
+Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8 and
+9), and last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
 either it exits non-zero and prints no result.
@@ -888,23 +906,24 @@ def stream_phase(K, data, host, smi: str):
                     bound_ms=b, bound_by=by)
         del ranked, wr, lut, nvalid, X
         h = psm.db.handles()[0]
+        planes, single = h.planes[0], h.singleton[0]  # the one data shard
         qs, ps = np.nonzero(C >= mc)
         ranks = np.stack([qs, ps], axis=1).astype(np.int32)
         idx, _, _ = psm.miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
         local = torch.from_numpy(np.stack([h.g2l[idx[0]], h.g2l[idx[1]], h.g2l[idx[2]]])
                                  .astype(np.int64)).to(dev)
         n_live = len(ranks)
-        got = K.nlist_wave_cuda(h.planes, h.singleton, local, n_live)
+        got = K.nlist_wave_cuda(planes, single, local, n_live)
         err = assert_equal("nlist_intersect pumsb segment", got,
-                           nl_ref.nlist_wave_ref(h.planes, h.singleton, local, n_live))
-        nb, nz = wave_bytes(h.planes, h.singleton, local, n_live)
-        W = h.planes.shape[2]
+                           nl_ref.nlist_wave_ref(planes, single, local, n_live))
+        nb, nz = wave_bytes(planes, single, local, n_live)
+        W = planes.shape[2]
         b, by = bound(nb, nz * (math.ceil(math.log2(W)) + 2))
         wave = dict(shape=f"pumsb stream segment level-2 wave: {n_live} candidates, Cpad "
                           f"{idx.shape[1]} x W {W}, planes (3, {seg.k + 1}, {W}) with the "
                           f"sentinel row, {nz} nonzero Y codes", max_abs_err=err,
-                    ms=time_ms(lambda: K.nlist_wave_cuda(h.planes, h.singleton, local, n_live)),
-                    plain_ms=time_ms(lambda: nl_ref.nlist_wave_ref(h.planes, h.singleton, local,
+                    ms=time_ms(lambda: K.nlist_wave_cuda(planes, single, local, n_live)),
+                    plain_ms=time_ms(lambda: nl_ref.nlist_wave_ref(planes, single, local,
                                                                    n_live), reps=2),
                     library_ms=None, bound_ms=b, bound_by=by)
         log(f"  B4 equal to its plain version at a pumsb segment (K={seg.k}): {cooc['ms']:.4f}ms "
@@ -913,7 +932,7 @@ def stream_phase(K, data, host, smi: str):
             f"its level-2 wave: {wave['ms']:.4f}ms against plain {wave['plain_ms']:.2f}ms, bound "
             f"{wave['bound_ms']:.4f}ms [{smi}]")
         extra = {"cooccur": cooc, "nlist_intersect": wave}
-        del local, got, h
+        del local, got, h, planes, single
         del psm, peng, segs, seg, C
         gc.collect()
 
@@ -1057,6 +1076,195 @@ def stream_phase(K, data, host, smi: str):
     if not (total["nlist_intersect"] and total["cooccur"]):
         raise AssertionError(f"a kernel of the streaming path was not launched in phase 8: {total}")
     return total, extra
+
+
+def mesh_phase(K, data, host, smi: str, oneshot: dict, dev="cuda") -> dict[str, int]:
+    """Phase 9: HPrepost on D×M meshes whose positions all share ``dev`` (see
+    the module docstring). ``oneshot`` maps each dataset to phase 4's 1×1
+    itemsets. Every number printed carries ``smi``, the card's name and power
+    limit. -> this phase's launches."""
+    from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.mining import MineSpec, MiningEngine, MiningService
+
+    dev = torch.device(dev)
+    axes = ("data", "model")
+    pad = np.iinfo(np.int32).max
+    sups = {"mushroom": 0.15, "pumsb": 0.15, "kosarak": 0.01}
+    # (shape, locality dispatch): the shuffle on (2, 2), B2 per group on (1, 2)
+    meshes = [((2, 1), True), ((4, 1), True), ((4, 2), True), ((2, 2), False), ((1, 2), True)]
+    total = {k: 0 for k in K.launches()}
+    gc.collect()  # what earlier phases dropped must not count in this phase's peaks
+
+    def on_card(shape):
+        return make_mesh(shape, axes, [dev] * math.prod(shape))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        """``fn()`` with every launch count set to 0 just before and read
+        just after. -> (result, wall seconds, launches)."""
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        got = K.launches()
+        for k, v in got.items():
+            total[k] += v
+        return out, wall, got
+
+    def check(what, name, itemsets, min_count, vs_oneshot=True):
+        want = host_answer(data, host, name, min_count)
+        if itemsets != want or (vs_oneshot and itemsets != oneshot[name]):
+            raise AssertionError(f"{what}: {len(itemsets)} itemsets vs {len(want)} from the host "
+                                 f"PrePost miner, {len(oneshot[name])} from phase 4's 1x1 mine")
+
+    # 9a. one-shot mines on every mesh, each paying for its own prepare
+    for name, sup in sups.items():
+        rows, n_items = data[name]
+        mc = max(1, math.ceil(sup * len(rows) - 1e-9))
+        compared = set()  # data-shard counts whose payload was held to the CPU mesh's
+        for shape, loc in meshes:
+            spec = MineSpec(algorithm="hprepost", min_sup=sup)
+            if loc:
+                eng = MiningEngine(mesh=on_card(shape), prep_cache_bytes=0)
+                miner = eng.frontend("hprepost").miner_for(spec)
+                run = lambda: eng.submit(rows, n_items, spec).itemsets  # noqa: E731
+            else:
+                # MineSpec has no locality knob (nor has the reference's): the
+                # shuffle runs through the miner itself
+                miner = HPrepostMiner(config=HPrepostConfig(locality_dispatch=False),
+                                      mesh=on_card(shape))
+                run = lambda: miner.mine(rows, n_items, mc).itemsets  # noqa: E731
+            D, Mb = miner.D, miner._Mb
+            peak = "not measured"
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            w0 = miner.stage_counters["waves"]
+            itemsets, wall, got = counted(run)
+            if dev.type == "cuda":
+                peak = (f"{(torch.cuda.max_memory_allocated() - base) / MB:.1f} MiB above the "
+                        f"{base / MB:.1f} MiB held before")
+            waves = miner.stage_counters["waves"] - w0
+            launches = waves * D * Mb
+            want = {"histogram": D, "cooccur": D, "nlist_intersect": launches if D > 1 else 0,
+                    "nlist_intersect_es": 0 if D > 1 else launches}
+            if got != want or waves == 0:
+                raise AssertionError(f"mesh {name} {shape}: {waves} waves, launches {got}, "
+                                     f"expected {want}")
+            check(f"mesh {name} {shape} locality {loc}", name, itemsets, mc)
+            # the per-reducer state: one more prepare, outside the counted run
+            prep = miner.prepare(rows, n_items, mc)
+            shard_bytes = [int(p.numel() * 4) for p in prep.packed]
+            nodes = [int((p[..., 0] != pad).sum()) for p in prep.packed]
+            held = ""
+            if (name == "mushroom" or (name == "pumsb" and D > 1)) and D not in compared:
+                ref = HPrepostMiner(mesh=make_mesh(shape, axes, ["cpu"] * math.prod(shape)))
+                want_p, got_p = ref.prepare(rows, n_items, mc).to_host(), prep.to_host()
+                for k, v in want_p.items():
+                    g = got_p[k]
+                    if isinstance(v, np.ndarray):
+                        same = v.dtype == g.dtype and v.shape == g.shape and v.tobytes() == g.tobytes()
+                    else:
+                        same = type(v) is type(g) and v == g
+                    if not same:
+                        raise AssertionError(f"mesh {name} {shape}: payload {k!r} differs from "
+                                             f"the CPU mesh's")
+                compared.add(D)
+                held = f", to_host() payload (D={D}) equal to a CPU mesh's key by key"
+            log(f"mesh {name}@{sup} {shape} locality {loc}: wall {wall:.4f}s, "
+                f"{len(itemsets)} itemsets == host mine_prepost == phase 4 (1x1); K {prep.fl.k}, "
+                f"W {prep.width}, per-shard packed bytes {shard_bytes}, tree nodes {nodes}, "
+                f"prep_bytes {prep.prep_bytes}, peak device memory {peak}, {waves} waves, "
+                f"launches {json.dumps(got)}, distinct cards {len(miner.devices)}{held} [{smi}]")
+            del prep, miner
+            gc.collect()
+
+    # 9b. a (2, 1) snapshot warm-starts (2, 2) with no prepare; (1, 1) rebuilds
+    rows, n_items = data["mushroom"]
+    spec = MineSpec(algorithm="hprepost", min_sup=0.15)
+    with tempfile.TemporaryDirectory() as snap:
+        runs = []
+        for shape in ((2, 1), (2, 2), (1, 1)):
+            eng = MiningEngine(mesh=on_card(shape), snapshot_dir=snap)
+            res, wall, got = counted(lambda: eng.submit(rows, n_items, spec))
+            check(f"snapshot {shape}", "mushroom", res.itemsets, res.min_count)
+            runs.append((shape, res.service_stats["prep_source"], got, wall,
+                         eng.cache_info()["snapshot_hits"]))
+        sources = [r[1] for r in runs]
+        warm = runs[1][2]
+        if sources != ["built", "snapshot", "built"] or warm["histogram"] or warm["cooccur"]:
+            raise AssertionError(f"mesh snapshots: {runs}")
+        log("mesh snapshot mushroom@0.15: " + "; ".join(
+            f"{s} {src} in {w:.4f}s (B3 {g['histogram']}, B4 {g['cooccur']}, snapshot hits {h})"
+            for s, src, g, w, h in runs) + f" [{smi}]")
+
+    # 9c. one (2, 2) service batch: the mushroom sweep and pumsb
+    rows_p, n_p = data["pumsb"]
+    with MiningService(mesh=on_card((2, 2)), batch_window_s=0.05) as svc:
+        def batch():
+            futs = svc.sweep(rows, n_items, spec, [0.3, 0.2, 0.15])
+            futs.append(svc.submit(rows_p, n_p, spec))
+            return [f.result(timeout=300) for f in futs]
+
+        results, wall, got = counted(batch)
+        streams = len(svc.scheduler.prep_streams)
+    for r, name in zip(results, ["mushroom"] * 3 + ["pumsb"]):
+        check(f"mesh service {name} at {r.min_count}", name, r.itemsets, r.min_count,
+              vs_oneshot=r.min_count == max(1, math.ceil(0.15 * len(data[name][0]) - 1e-9)))
+    if got["histogram"] != 4 or got["cooccur"] != 4 or got["nlist_intersect_es"]:
+        raise AssertionError(f"mesh service: launches {got}")
+    log(f"mesh service (2, 2): mushroom sweep 0.3/0.2/0.15 + pumsb@0.15 in one batch, wall "
+        f"{wall:.4f}s, {[len(r.itemsets) for r in results]} itemsets == host mine_prepost, "
+        f"launches {json.dumps(got)}, {streams} prep stream(s) [{smi}]")
+
+    # 9d. mushroom streamed as 4 batches into a (2, 1) mesh
+    eng = MiningEngine(mesh=on_card((2, 1)))
+
+    def stream():
+        for b in np.array_split(rows, 4):
+            eng.append(b, n_items, spec=spec)
+        return eng.submit_stream(spec)
+
+    res, wall, got = counted(stream)
+    sm = eng.stream()
+    check("mesh stream (2, 1)", "mushroom", res.itemsets, res.min_count)
+    seg_waves = sm.miner.stage_counters.get("seg_waves", 0)
+    if (got["cooccur"] != 4 * 2 or got["histogram"] or got["nlist_intersect_es"]
+            or got["nlist_intersect"] != seg_waves * 2 or not seg_waves):
+        raise AssertionError(f"mesh stream: {seg_waves} segment waves, launches {got}")
+    log(f"mesh stream (2, 1): mushroom as 4 batches then a query at 0.15, wall {wall:.4f}s, "
+        f"{len(res.itemsets)} itemsets == host mine_prepost, {seg_waves} segment waves, "
+        f"launches {json.dumps(got)} [{smi}]")
+    del eng, sm
+    gc.collect()
+
+    # 9e. where the time goes: each dataset warm on (1, 1) and on (4, 2),
+    # under the profiler (device busy = union of kernel, copy, memset spans)
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, sup in sups.items():
+            rows, n_items = data[name]
+            spec = MineSpec(algorithm="hprepost", min_sup=sup)
+            for shape in ((1, 1), (4, 2)):
+                eng = MiningEngine(mesh=on_card(shape), prep_cache_bytes=0)
+                counted(lambda: eng.submit(rows, n_items, spec))  # warm-up
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    _, wall, got = counted(lambda: eng.submit(rows, n_items, spec))
+                tl = device_timeline(prof)
+                log(f"mesh profile {name}@{sup} {shape} (warm): wall {wall * 1e3:.1f}ms, device busy "
+                    f"{tl['busy_ms']:.1f}ms, idle share {1 - tl['busy_ms'] / (wall * 1e3):.3f}, "
+                    f"{tl['device_events']} device events, launches {json.dumps(got)} [{smi}]")
+                del eng
+    if not all(total.values()):
+        raise AssertionError(f"a kernel of the mesh path was not launched in phase 9: {total}")
+    return total
 
 
 def main() -> int:
@@ -1270,6 +1478,7 @@ def main() -> int:
     oneshot = MiningEngine(device="cuda", prep_cache_bytes=0)
     runs = [("mushroom", True), ("mushroom", False), ("pumsb", True), ("kosarak", True)]
     host = {}  # (dataset, min_count) -> the host PrePost miner's itemsets
+    oneshot_itemsets = {}  # dataset -> this phase's 1x1 answer (phase 9 holds meshes to it)
     K.reset_launches()
     per_run = []
     for name, es in runs:
@@ -1287,6 +1496,7 @@ def main() -> int:
         ref = mine_prepost(rows, n_items, res.min_count)
         t_ref = time.perf_counter() - t0
         host[name, res.min_count] = ref.itemsets
+        oneshot_itemsets[name] = res.itemsets
         if res.itemsets != ref.itemsets:
             raise AssertionError(f"{name} early_stop={es}: {len(res.itemsets)} itemsets vs "
                                  f"{len(ref.itemsets)} from the host PrePost miner")
@@ -1359,9 +1569,15 @@ def main() -> int:
     for kname, e in stream_entries.items():
         entries[kname]["at_stream_pumsb_segment"] = e
 
+    # ------------------------------------------------- 9. HPrepost on a mesh
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(K, data, host, smi, oneshot_itemsets)
+    log(f"mesh: launches {json.dumps(mesh_launches)}; phase 9 took {time.perf_counter() - t0:.1f}s")
+
     kernels = []
     for kname, e in entries.items():
-        n = total[kname] + engine_launches[kname] + service_launches[kname] + stream_launches[kname]
+        n = (total[kname] + engine_launches[kname] + service_launches[kname]
+             + stream_launches[kname] + mesh_launches[kname])
         kernels.append(dict(name=kname, route="cuda", launches=n, kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,29 +1,43 @@
-"""HPrepost on one torch device: the paper's MapReduce miner.
+"""HPrepost on a mesh of torch devices: the paper's MapReduce miner.
 
-The Hadoop pipeline maps onto one data shard and one candidate group
-(the reference's 1×1 mesh):
+The Hadoop pipeline maps onto a ``(data, model)`` mesh of D data shards by M
+candidate groups (``repro_torch.launch.mesh``; the default is the 1×1 mesh
+on one device), driven by one host loop as the reference's is:
 
-  Job 1 (word count)      -> histogram kernel over the rows
-  Job 2 map (F-list sort) -> ``rank_encode_torch``
-  Job 2 reduce (PPC-tree) -> sort-based ``build_ppc_torch``, then the N-list
-                             pack into a ``(D=1, K, W, 3)`` buffer
-  F2 scan                 -> co-occurrence kernel
-  k>2 mining waves        -> batched N-list intersections: the fused
-                             intersect + support kernel, reading each
-                             candidate's parent state and N-lists by index
+  Job 1 (word count)      -> histogram kernel per data shard, summed
+  Job 2 map (F-list sort) -> ``rank_encode_torch`` per shard
+  Job 2 reduce (PPC-tree) -> sort-based ``build_ppc_torch`` per shard: each
+                             data shard owns the PPC-tree and N-lists of its
+                             block of rows, one Hadoop reducer's state, packed
+                             into its ``(K, W, 3)`` buffer
+  F2 scan                 -> co-occurrence kernel per shard, summed
+  k>2 mining waves        -> batched N-list intersections: candidates split
+                             into M groups, one fused intersect + support
+                             launch per (shard, group) position reading each
+                             candidate's parent state and N-lists by index,
+                             per-candidate supports summed over the shards
+                             (supports are additive over row blocks)
+
+Shard d's prep runs on position (d, 0); the other positions of row d read
+its planes through a ``.to()`` that copies only onto another device. The
+reference's ``psum`` over ``data`` is a sum of the shards' partial tensors
+on the miner's reduce device (position (0, 0)). Between waves, parent
+states either stay on their position (locality dispatch: a candidate is
+placed in its parent's group) or are gathered from every group of the row
+(the shuffle).
 
 The streaming reduce (``mine_prepared_segments``) runs the same wave loop
-over a segmented database: one B1 launch per segment per wave, against
-each segment's ``(3, K_s + 1, W_s)`` planes (``extend_with_sentinel``), and
-the per-segment supports summed on the host.
+over a segmented database: one B1 launch per segment per position per
+wave, against each segment's per-shard ``(3, K_s + 1, W_s)`` planes
+(``extend_with_sentinel``), and the per-segment supports summed on the host.
 
 Mining state per candidate: the merged N-list counts aligned with the
-candidate's base-item code slots — ``(C, W)`` buffers, candidate counts
-bucketed to powers of two like the reference. The host drives the level
-loop (as the Hadoop job tracker does) with the reference's NumPy planning,
-and keeps one wave in flight: wave l+1 is dispatched before wave l's
-supports are read back (through a pinned buffer and an event, so the read
-waits for wave l alone).
+candidate's base-item code slots — ``(Cs, W)`` buffers per position,
+candidate counts bucketed to powers of two like the reference. The host
+drives the level loop (as the Hadoop job tracker does) with the reference's
+NumPy planning, and keeps one wave in flight: wave l+1 is dispatched before
+wave l's supports are read back (through a pinned buffer and an event, so
+the read waits for wave l alone).
 """
 from __future__ import annotations
 
@@ -38,11 +52,12 @@ import torch
 from repro_torch.core import encoding as enc
 from repro_torch.core.ppc import build_ppc_torch
 from repro_torch.core.prepost import PrepostResult
-from repro_torch.device import resolve_device
+from repro_torch.device import wait_ready
 from repro_torch.fault import failures
 from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
 from repro_torch.kernels.histogram.ops import item_histogram
 from repro_torch.kernels.nlist_intersect.ops import EXACT_MAX, nlist_wave
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.mining import tune
 from repro_torch.mining.telemetry import trace
 
@@ -60,6 +75,10 @@ class HPrepostConfig:
     nlist_width: int | None = None  # static W; None = auto (next pow2 of max)
     candidate_unit: int = 256  # candidate buffers: pow2 multiples of this
     la_block: int = 512  # early-stop kernel: A-codes per liveness tile
+    partition_candidates: bool = True  # mode B (PFP groups over `model`)
+    locality_dispatch: bool = True  # children placed in their parent's group:
+    # the inter-wave shuffle becomes a position-local read, at the cost of
+    # per-group padding under skew
     pipeline_waves: bool = True  # dispatch wave l+1 before blocking on wave
     # l's supports: host candidate generation overlaps device execution; the
     # one-wave speculation is sound because support is anti-monotone
@@ -104,9 +123,11 @@ class PreparedDB:
     n_rows: int  # unpadded R0 the thresholds resolve against
     min_count_floor: int  # loosest threshold this prep can serve
     width: int  # static N-list width W (0 when F1-only)
-    packed: Any  # (1, K, W, 3) int32 device N-lists, or None when F1-only
+    # per data shard d, its (K, W, 3) int32 N-lists on the miner's position
+    # (d, 0); None when F1-only
+    packed: Any
     C: np.ndarray  # (K, K) upper-triangular F2 co-occurrence counts
-    prep_bytes: int  # footprint: rows + F-list + packed
+    prep_bytes: int  # per-shard footprint: rows + F-list + packed
     rows_flist_bytes: int  # the threshold-independent part of prep_bytes
     stage_times: dict[str, float]  # job1_flist / job2_ppc_pack / f2_scan
     f1_only: bool = False  # True when built with need_waves=False
@@ -120,7 +141,9 @@ class PreparedDB:
 
     def to_host(self) -> dict:
         """The prep as a host payload (plain numpy + scalars) in the
-        reference's layout: ``packed`` keeps its ``(D, K, W, 3)`` shape."""
+        reference's layout: ``packed`` is gathered to ``(D, K, W, 3)``, each
+        leading slice one reducer's PPC-tree state, so the payload restores
+        onto any mesh with the same data-shard count."""
         out = {
             "schema": PREPARED_SCHEMA,
             "n_items": int(self.n_items),
@@ -138,12 +161,13 @@ class PreparedDB:
             "C": np.asarray(self.C),
         }
         if self.packed is not None:
-            out["packed"] = self.packed.cpu().numpy()
+            out["packed"] = np.stack([p.cpu().numpy() for p in self.packed])
         return out
 
     @classmethod
     def from_host(cls, payload: dict, miner: "HPrepostMiner") -> "PreparedDB":
-        """Load a ``to_host`` payload onto ``miner``'s device.
+        """Load a ``to_host`` payload onto ``miner``'s mesh: shard d's
+        N-lists onto position (d, 0).
 
         Raises ``ValueError`` when the payload cannot serve here (schema
         skew, data-shard count mismatch, or shape corruption). Prep stage
@@ -156,8 +180,8 @@ class PreparedDB:
             if n_shards != miner.D:
                 raise ValueError(
                     f"snapshot was prepared for {n_shards} data shard(s) but the "
-                    f"miner has D={miner.D}; per-shard PPC state does not re-shard "
-                    f"— re-prepare"
+                    f"mesh has D={miner.D}; per-shard PPC state does not re-shard "
+                    f"— re-prepare on this mesh"
                 )
             fl = enc.FList(
                 items=np.asarray(payload["fl_items"], np.int32),
@@ -176,7 +200,8 @@ class PreparedDB:
                 want = (n_shards, fl.k, width, 3)
                 if ph.shape != want:
                     raise ValueError(f"snapshot packed has shape {ph.shape}, expected {want}")
-                packed = torch.from_numpy(np.array(ph)).to(miner.device)
+                packed = tuple(torch.from_numpy(np.array(ph[d])).to(miner._grid[d, 0])
+                               for d in range(n_shards))
         except (KeyError, TypeError, OverflowError) as e:
             raise ValueError(f"malformed PreparedDB snapshot payload: {e!r}") from e
         return cls(
@@ -196,10 +221,11 @@ class PreparedDB:
         )
 
     def bytes_at(self, min_count: int, n_shards: int) -> int:
-        """Prep footprint attributable to one threshold: rows + F-list + the
-        N-list prefix of ranks frequent at ``min_count`` (the floor F-list
-        is support-descending, so that prefix is exactly what an
-        independent mine at this threshold would pack)."""
+        """Per-shard prep footprint attributable to one threshold: rows +
+        F-list + the N-list prefix of ranks frequent at ``min_count`` (the
+        floor F-list is support-descending, so that prefix is exactly what
+        an independent mine at this threshold would pack), as the reference
+        counts it."""
         packed_part = 0
         if self.packed is not None:
             packed_part = int(self.k_active(min_count) * self.width * 3 * 4 // max(n_shards, 1))
@@ -214,23 +240,24 @@ class PreparedDB:
 class SegmentHandle:
     """One segment's device state, ready for cross-segment wave execution.
 
-    ``planes`` are the segment's N-lists as the wave kernel reads them,
-    ``(3, K_s + 1, W_s)`` int32 (pre, post, count), with one all-padding
-    *sentinel* rank row at index ``K_s`` (``extend_with_sentinel``); ``g2l``
-    maps every global stream rank to the segment's local rank, with ranks
-    absent from the segment mapped to the sentinel. The wave kernel cuts
-    every list at its padding, so the sentinel row is an empty N-list: a
-    candidate touching an item the segment never saw reports support 0
+    ``planes[d]`` are data shard d's N-lists as the wave kernel reads them,
+    ``(3, K_s + 1, W_s)`` int32 (pre, post, count) on the miner's position
+    (d, 0), with one all-padding *sentinel* rank row at index ``K_s``
+    (``extend_with_sentinel``); ``singleton[d]`` is ``planes[d][2]``.
+    ``g2l`` maps every global stream rank to the segment's local rank, with
+    ranks absent from the segment mapped to the sentinel. The wave kernel
+    cuts every list at its padding, so the sentinel row is an empty N-list:
+    a candidate touching an item the segment never saw reports support 0
     there — precisely its contribution to the global (additive) support.
     (The reference's handle holds the same rows as a ``(D, K_s + 1, W_s,
     3)`` buffer.)
 
-    ``ready``: a CUDA event recorded after the planes were built, when they
-    were built on another stream than the queries' (a compaction's); None
-    otherwise."""
+    ``ready``: ``(device, event)`` pairs recorded after the planes were
+    built, when they were built on other streams than the queries' (a
+    compaction's); None otherwise."""
 
-    planes: Any  # (3, K_s + 1, W_s) device N-lists incl. the sentinel row
-    singleton: Any  # planes[2] — the segment's level-2 bootstrap
+    planes: tuple  # per data shard: (3, K_s + 1, W_s) device N-lists incl. the sentinel row
+    singleton: tuple  # per data shard: planes[d][2], the level-2 bootstrap
     g2l: np.ndarray  # (K_global,) int32: stream rank -> local rank | K_s
     ready: Any = None
 
@@ -246,15 +273,18 @@ class LocalSegmentExecutor:
         short-circuits the wave loop (F1-only result).
       - ``begin()``: reset per-query state to the level-2 singleton
         bootstrap.
-      - ``dispatch(level, idx, n_live)``: launch one planned wave over every
-        segment; ``idx`` is the wave's host ``(3, Cpad)`` int64 (parent,
-        base, extension) rows from ``HPrepostMiner._pack_wave`` in the
-        global rank space, ``n_live`` its live slots. Returns an opaque
-        token and does not block on device results (pipelining). No
-        in-kernel early stop: segmented supports are partial until the
-        cross-segment reduce, so masking against the global threshold
-        would be unsound — every segment wave runs B1, and host-side
-        pruning carries the early-stop win.
+      - ``dispatch(level, idx, live, local)``: launch one planned wave over
+        every segment and mesh position; ``idx`` is the wave's host ``(3,
+        Cpad)`` int64 (parent, base, extension) rows from
+        ``HPrepostMiner._pack_wave`` in the global rank space, candidate
+        group g in columns ``[g·Cs, (g+1)·Cs)``, ``live`` each group's live
+        slots (a prefix of the group) and ``local`` whether parents are
+        read in their own group (locality dispatch) or gathered from every
+        group (the shuffle). Returns an opaque token and does not block on
+        device results (pipelining). No in-kernel early stop: segmented
+        supports are partial until the cross-segment reduce, so masking
+        against the global threshold would be unsound — every segment wave
+        runs B1, and host-side pruning carries the early-stop win.
       - ``collect(token)``: block, and return the per-candidate supports
         summed over this executor's segments as an int64 host vector —
         the paper's reduce step. With ``weights`` the reduce is instead the
@@ -265,7 +295,7 @@ class LocalSegmentExecutor:
         exact integer reduce — the planner reads this attribute to decide
         integer vs float threshold semantics.
       - ``state_bytes``: footprint of the in-flight merged-N-list states
-        after the latest dispatch/collect (peak accounting).
+        after the latest dispatch/collect (peak accounting, per position).
     """
 
     def __init__(self, miner: "HPrepostMiner", handles: "list[SegmentHandle]",
@@ -279,6 +309,7 @@ class LocalSegmentExecutor:
                     f"{len(weights)} segment weights for {len(self.handles)} handles"
                 )
         self.weights = weights
+        self._planes: list | None = None
         self._prev: list | None = None
         self.state_bytes = 0
 
@@ -287,42 +318,39 @@ class LocalSegmentExecutor:
         return len(self.handles)
 
     def begin(self) -> None:
-        dev = self.miner.device
         for h in self.handles:
             if h.ready is not None:
-                # planes built on another stream (a compaction's): order
-                # this query's stream after the build, and mark the planes in
-                # use here so the allocator cannot hand their block out while
-                # these waves still read it, whenever the segment is dropped
-                stream = torch.cuda.current_stream(dev)
-                stream.wait_event(h.ready)
-                h.planes.record_stream(stream)
-        self._prev = [h.singleton for h in self.handles]
+                # planes built on other streams (a compaction's): order this
+                # query's streams after the build, and mark the planes in use
+                # here so the allocator cannot hand their blocks out while
+                # these waves still read them, whenever the segment is dropped
+                wait_ready(h.ready)
+                for p in h.planes:
+                    p.record_stream(torch.cuda.current_stream(p.device))
+        self._planes = [self.miner._position_planes(h.planes) for h in self.handles]
+        self._prev = [[[p[2] for p in row] for row in planes] for planes in self._planes]
         self.state_bytes = 0
 
-    def dispatch(self, level: int, idx: np.ndarray, n_live: int):
+    def dispatch(self, level: int, idx: np.ndarray, live: np.ndarray, local: bool):
         m = self.miner
         failures.fire("mine.wave")
         new_states, parts = [], []
-        for h, prev in zip(self.handles, self._prev):
+        for h, planes, prev in zip(self.handles, self._planes, self._prev):
             # level-2 parents are singleton ranks (per-segment rows); later
             # levels read the parent state by global slot, shared by layout
-            local = np.stack([h.g2l[idx[0]] if level == 2 else idx[0],
-                              h.g2l[idx[1]], h.g2l[idx[2]]]).astype(np.int64)
-            new_s, sup_s = nlist_wave(
-                h.planes, prev, _to_device(local, m.device), n_live,
-                backend=m.backend, early_stop=False,
-            )
+            ix = np.stack([h.g2l[idx[0]] if level == 2 else idx[0],
+                           h.g2l[idx[1]], h.g2l[idx[2]]]).astype(np.int64)
+            new_s, sups = m._mesh_wave(planes, prev, ix, live, level, local, 0)
             new_states.append(new_s)
-            parts.append(sup_s)
+            parts.extend(sups)
         m.stage_counters["waves"] += 1
         m.stage_counters["seg_waves"] = (
             m.stage_counters.get("seg_waves", 0) + len(self.handles)
         )
         self._prev = new_states
-        self.state_bytes = sum(int(s.numel() * 4) for s in new_states)
-        # one device-to-host copy of every segment's supports, not S copies
-        return _HostRead(torch.stack(parts))
+        self.state_bytes = sum(int(s[0][0].numel() * 4) for s in new_states)
+        # one read of every segment's supports: (S, Cpad) on the host
+        return _HostRead(parts, (len(self.handles), idx.shape[1]))
 
     def collect(self, token) -> np.ndarray:
         stacked = token.get()
@@ -357,23 +385,43 @@ def pack_nlists_torch(item, count, pre, post, k: int, width: int) -> torch.Tenso
 
 
 class _HostRead:
-    """A device vector copied back without blocking the caller: on CUDA a
-    non-blocking copy into pinned memory plus an event, so ``get`` waits for
-    the work before the copy only — never for waves dispatched after it."""
+    """Device vectors copied back without blocking the caller, concatenated
+    in order (and reshaped to ``shape``): on CUDA non-blocking copies into
+    one pinned buffer plus an event per device, so ``get`` waits for the
+    work before the copies only — never for waves dispatched after them."""
 
-    def __init__(self, t: torch.Tensor):
-        if t.is_cuda:
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
+    def __init__(self, parts, shape=None):
+        self._shape = shape
+        self._events = []
+        if parts[0].is_cuda:
+            self._host = torch.empty(sum(p.numel() for p in parts), dtype=parts[0].dtype,
+                                     pin_memory=True)
+            at = 0
+            for p in parts:
+                self._host[at:at + p.numel()].copy_(p, non_blocking=True)
+                at += p.numel()
+            for dev in dict.fromkeys(p.device for p in parts):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                self._events.append(ev)
         else:
-            self._host, self._event = t, None
+            self._host = parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def get(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        for ev in self._events:
+            ev.synchronize()
+        out = self._host.numpy()
+        return out if self._shape is None else out.reshape(self._shape)
+
+
+def _sum_to(parts, device: torch.device) -> torch.Tensor:
+    """Σ ``parts`` on ``device``: the reference's ``psum`` over the data
+    shards. Integer counts stay exact: each is bounded by the row count,
+    which ``prepare`` guards below the kernels' int32 bound."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
 
 
 def _host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -393,14 +441,30 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class HPrepostMiner:
-    """The N-list miner on one torch device (D = 1 data shard, M = 1
-    candidate group). ``device`` defaults to CUDA and raises when none is
-    present; pass ``device="cpu"`` for the plain PyTorch versions."""
+    """The N-list miner on a mesh of torch devices: D data shards by M
+    candidate groups. ``mesh=None`` is the 1×1 mesh on ``device`` (CUDA by
+    default, raising when none is present; ``device="cpu"`` runs the plain
+    PyTorch versions). ``data_axis`` may name several mesh axes (e.g.
+    ``("pod", "data")``), whose sizes multiply into D; ``model_axis`` splits
+    the candidates (mode B), and ``model_axis=None`` or
+    ``partition_candidates=False`` keeps them in one group (mode A)."""
 
-    def __init__(self, device=None, config: HPrepostConfig = HPrepostConfig()):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, config: HPrepostConfig = HPrepostConfig(), *,
+                 mesh: Mesh | None = None, data_axis: str | tuple[str, ...] = "data",
+                 model_axis: str | None = "model"):
+        if mesh is None:
+            mesh = make_mesh((1, 1), ("data", "model"), devices=[device])
+        elif device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.mesh = mesh
+        self.data_axis = (data_axis,) if isinstance(data_axis, str) else tuple(data_axis)
+        self.model_axis = model_axis
         self.cfg = config
-        self.D = 1  # data shards: one device holds the whole database
+        # (D, M) devices: position (d, m) holds data shard d, candidate group m
+        self._grid = mesh.grid(self.data_axis, model_axis)
+        self.D, self.M = self._grid.shape
+        # the reduce device: shard sums and host reads land here
+        self.device = self._grid[0, 0]
         self.last_stage_times: dict[str, float] = {}
         # how many times each device stage ran over this miner's lifetime —
         # the engine's shared-prep planning is asserted against these
@@ -414,6 +478,16 @@ class HPrepostMiner:
         # come straight from the config knobs. Memoized per wave shape.
         self.tuner = None
         self._plan_cache: dict[tuple[int, int], tune.KernelPlan] = {}
+
+    @property
+    def _Mb(self) -> int:
+        """Candidate groups a wave is split into: M in mode B, else 1."""
+        return self.M if (self.cfg.partition_candidates and self.model_axis) else 1
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """The distinct devices this miner's positions lie on."""
+        return list(dict.fromkeys(self._grid.flat))
 
     def _kernel_plan(self, n_cands: int, width: int) -> tune.KernelPlan:
         """Resolve the execution plan (concrete backend + ``la_block``) for a
@@ -442,6 +516,10 @@ class HPrepostMiner:
         Job 2 (PPC-tree), N-list pack, F2 scan. The result serves any
         ``mine_prepared`` at ``min_count >= min_count_floor``.
 
+        The rows are padded with ``PAD`` rows to ``Rp = ceil(R0/D)·D`` and
+        split into D contiguous blocks; each data shard's stages run on its
+        position (d, 0), and the histograms and F2 matrices are summed.
+
         ``need_waves=False`` stops after the F-list (for ``max_k == 1``
         traffic, where the tree/N-lists are never consulted).
 
@@ -453,23 +531,30 @@ class HPrepostMiner:
         and the result is marked ``support_ordered=False``: it can only be
         mined through ``mine_prepared_segments``."""
         cfg = self.cfg
-        dev = self.device
+        D = self.D
         stages: dict[str, float] = {}
         t0 = time.perf_counter()
         R0, L = rows.shape
+        Rs = -(-R0 // D)  # rows per shard
         # the kernels accumulate counts in int32; every count they can
-        # produce is bounded by the row count, so refuse what could wrap
-        if self.backend == "cuda" and R0 >= EXACT_MAX:
+        # produce is bounded by the shard's row count, so refuse what could wrap
+        if self.backend == "cuda" and Rs >= EXACT_MAX:
             raise ValueError(
-                f"row count {R0} reaches the int32 exact-integer bound 2^31-1 "
-                f"of the CUDA kernels' counts"
+                f"per-shard row count {Rs} reaches the int32 exact-integer bound "
+                f"2^31-1 of the CUDA kernels' counts; shard the database over "
+                f"more devices (D={D})"
             )
-        rows_p = np.require(rows, np.int32, ["C"])
-        rows_t = _host_tensor(rows_p).to(dev)
+        rows_c = np.require(rows, np.int32, ["C"])
+        shard_rows = []  # per shard: its block of Rs rows on position (d, 0)
+        for d in range(D):
+            block = rows_c[d * Rs:(d + 1) * Rs]
+            if len(block) < Rs:  # the tail shard: PAD rows up to Rs
+                block = np.concatenate([block, np.full((Rs - len(block), L), enc.PAD, np.int32)])
+            shard_rows.append(_host_tensor(block).to(self._grid[d, 0]))
 
         if flist is None:
-            hist = item_histogram(rows_t, n_bins=n_items, backend=cfg.backend)
-            supports = hist.cpu().numpy()
+            hists = [item_histogram(r, n_bins=n_items, backend=cfg.backend) for r in shard_rows]
+            supports = _sum_to(hists, self.device).cpu().numpy()
             self.stage_counters["job1"] += 1
             fl = enc.build_flist(supports, min_count_floor)
         else:
@@ -483,7 +568,7 @@ class HPrepostMiner:
         if K > cfg.max_f1:
             raise ValueError(f"|F1|={K} exceeds max_f1={cfg.max_f1}; raise min_count or max_f1")
 
-        rows_flist_bytes = int(rows_p.nbytes) + int(fl.items.nbytes + fl.supports.nbytes)
+        rows_flist_bytes = Rs * L * 4 + int(fl.items.nbytes + fl.supports.nbytes)
         prep_bytes = rows_flist_bytes
         stages["job2_ppc_pack"] = 0.0
         stages["f2_scan"] = 0.0
@@ -492,62 +577,134 @@ class HPrepostMiner:
         W = 0
         if K > 0 and need_waves:
             t0 = time.perf_counter()
-            lut = torch.from_numpy(fl.rank_lut()).to(dev)
-            ranked = enc.rank_encode_torch(rows_t, lut, n_items)
-            w = torch.ones(R0, dtype=torch.int64, device=dev)
-            item, count, pre, post = build_ppc_torch(ranked, w, K)
+            lut = torch.from_numpy(fl.rank_lut())
+            ranked, trees = [], []
+            for d, r in enumerate(shard_rows):
+                ranked.append(enc.rank_encode_torch(r, lut.to(r.device), n_items))
+                w = torch.ones(Rs, dtype=torch.int64, device=r.device)
+                trees.append(build_ppc_torch(ranked[d], w, K))
             self.stage_counters["job2"] += 1
-            lens = torch.bincount(item, minlength=K)
-            w_needed = max(int(lens.max()) if len(item) else 1, 1)
+            # W covers the longest N-list of any shard (the reference's pmax)
+            longest = [torch.bincount(item, minlength=K).max() for item, *_ in trees]
+            w_needed = max(int(torch.stack([n.to(self.device) for n in longest]).max()), 1)
             W = cfg.nlist_width or _pow2(max(w_needed, 8))
-            packed = pack_nlists_torch(item, count, pre, post, K, W)
+            packed = tuple(pack_nlists_torch(*tree, K, W)[0] for tree in trees)
             self.stage_counters["pack"] += 1
             stages["job2_ppc_pack"] = time.perf_counter() - t0
 
             t0 = time.perf_counter()
             if K > 1:
-                C = cooccurrence_matrix(ranked, n_items=K, backend=cfg.backend).cpu().numpy()
+                coocs = [cooccurrence_matrix(r, n_items=K, backend=cfg.backend) for r in ranked]
+                C = _sum_to(coocs, self.device).cpu().numpy()
                 self.stage_counters["f2"] += 1
             C = np.triu(C, 1)
             stages["f2_scan"] = time.perf_counter() - t0
-            prep_bytes += int(packed.numel() * 4)
+            prep_bytes += K * W * 3 * 4
 
         return PreparedDB(
             fl=fl, n_items=n_items, n_rows=R0, min_count_floor=int(min_count_floor),
             width=W, packed=packed, C=C,
             prep_bytes=prep_bytes, rows_flist_bytes=rows_flist_bytes,
-            stage_times=stages, f1_only=not need_waves, n_shards=self.D,
+            stage_times=stages, f1_only=not need_waves, n_shards=D,
             support_ordered=flist is None,
         )
 
     # ---------------------------------------------------------------- waves
-    def _pack_wave(self, ranks, parents, qarr):
-        """Host slot assignment for one wave: candidate i -> device slot i,
-        padded to a power-of-two multiple of ``candidate_unit``. (With one
-        shard the reference's locality bucketing assigns the same slots.)
-        Slots ``>= len(ranks)`` are padding: the wave kernel reads nothing
-        for them and writes zeros.
+    def _pack_wave(self, ranks, parents, qarr, level: int = 2, slots_per_shard: int = 0):
+        """Host slot assignment for one wave: candidate i -> device slot
+        ``slot_of[i]``, the reference's layout. At level 2, or without
+        locality dispatch, candidates fill the slots in order, padded to
+        ``Mb`` groups of a power-of-two multiple of ``candidate_unit``; with
+        it, each candidate lands in its parent's group (the previous wave's
+        ``slots_per_shard`` slots each) and reads its parent by local row.
+        Either way a group's live slots are a prefix of its ``Cs`` slots; the
+        rest are padding, which the wave kernel reads nothing for and writes
+        zeros to.
 
-        -> (idx (3, Cpad) int64 rows (parent, base, extension), slot_of, Cpad)."""
+        -> (idx (3, Cpad) int64 rows (parent, base, extension), group g in
+        columns [g·Cs, (g+1)·Cs); slot_of; Cpad)."""
         unit = self.cfg.candidate_unit
+        Mb = self._Mb
         Cn = len(ranks)
-        Cpad = unit * _pow2((Cn + unit - 1) // unit)
-        slot_of = np.arange(Cn, dtype=np.int64)
+        if level == 2 or not self.cfg.locality_dispatch:
+            Cs = unit * _pow2((Cn + unit * Mb - 1) // (unit * Mb))
+            slot_of = np.arange(Cn, dtype=np.int64)
+            parent_rows = parents
+        else:
+            # bucket children onto their parent's group; the stable argsort
+            # over bucket ids yields each candidate's rank within its bucket
+            # without any per-candidate loop
+            bucket = np.minimum(parents.astype(np.int64) // slots_per_shard, Mb - 1)
+            counts = np.bincount(bucket, minlength=Mb)
+            Cs = unit * _pow2((int(counts.max()) + unit - 1) // unit)
+            order = np.argsort(bucket, kind="stable")
+            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            pos = np.empty(Cn, np.int64)
+            pos[order] = np.arange(Cn) - starts[bucket[order]]
+            slot_of = bucket * Cs + pos
+            parent_rows = parents % slots_per_shard  # local row
+        Cpad = Cs * Mb
         idx = np.zeros((3, Cpad), np.int64)
-        idx[0, :Cn] = parents
-        idx[1, :Cn] = ranks[:, 1]
-        idx[2, :Cn] = qarr
+        idx[0, slot_of] = parent_rows
+        idx[1, slot_of] = ranks[:, 1]
+        idx[2, slot_of] = qarr
         return idx, slot_of, Cpad
 
-    def _wave(self, planes, prev_state, idx, n_live: int, stop_count: int):
-        """One wave on the device: the fused intersect + support kernel reads
-        each live candidate's parent state and N-lists in place by ``idx``
-        — no gathered copies. Its plan comes per wave shape."""
-        plan = self._kernel_plan(idx.shape[1], planes.shape[2])
+    def _group_live(self, slot_of: np.ndarray, Cpad: int) -> np.ndarray:
+        """Live slots of each candidate group (a prefix of the group)."""
+        return np.bincount(slot_of // (Cpad // self._Mb), minlength=self._Mb)
+
+    def _position_planes(self, shard_planes) -> list[list[torch.Tensor]]:
+        """``[d][g]``: shard d's planes on position (d, g)'s device (a copy
+        only where that is another device than the shard's)."""
+        return [[shard_planes[d].to(self._grid[d, g]) for g in range(self._Mb)]
+                for d in range(self.D)]
+
+    def _wave(self, planes, prev_state, idx, n_live: int, stop_count: int, plan=None):
+        """One launch at one position: the fused intersect + support kernel
+        reads each live candidate's parent state and N-lists in place by
+        ``idx`` — no gathered copies. B2 (early stop at ``stop_count``) where
+        the plan says early stop and the threshold is positive, else B1."""
+        if plan is None:
+            plan = self._kernel_plan(idx.shape[1], planes.shape[2])
+        if not isinstance(idx, torch.Tensor):
+            idx = _to_device(idx, planes.device)
         return nlist_wave(
-            planes, prev_state, _to_device(idx, self.device), n_live, backend=plan.backend,
-            la_block=plan.la_block, early_stop=plan.early_stop, min_count=stop_count,
+            planes, prev_state, idx, n_live, backend=plan.backend, la_block=plan.la_block,
+            early_stop=plan.early_stop and stop_count > 0, min_count=stop_count,
         )
+
+    def _mesh_wave(self, planes, prev, idx, live, level: int, local: bool, stop_count: int):
+        """One wave on every (d, g) position: group g's columns of ``idx``
+        against shard d's ``planes[d][g]``, parents from ``prev[d][g]`` (at
+        level 2 the shard's singleton counts; with ``local`` the position's
+        own previous block) or, for the shuffle, from row d's previous blocks
+        of every group gathered onto the position. -> (new states ``[d][g]``
+        ``(Cs, W)``, per group the supports summed over the shards on the
+        reduce device)."""
+        D, Mb = self.D, self._Mb
+        Cs = idx.shape[1] // Mb
+        plan = self._kernel_plan(idx.shape[1], planes[0][0].shape[2])
+        groups = np.ascontiguousarray(idx.reshape(3, Mb, Cs).transpose(1, 0, 2))
+        on_dev, gathered = {}, {}
+        new = [[None] * Mb for _ in range(D)]
+        parts = [[] for _ in range(Mb)]
+        for d in range(D):
+            for g in range(Mb):
+                dev = self._grid[d, g]
+                if (g, dev) not in on_dev:
+                    on_dev[g, dev] = _to_device(groups[g], dev)
+                if level == 2 or local:
+                    state = prev[d][g]
+                else:
+                    if (d, dev) not in gathered:
+                        blocks = [prev[d][j].to(dev) for j in range(Mb)]
+                        gathered[d, dev] = blocks[0] if Mb == 1 else torch.cat(blocks)
+                    state = gathered[d, dev]
+                new[d][g], sup = self._wave(planes[d][g], state, on_dev[g, dev], int(live[g]),
+                                            stop_count, plan)
+                parts[g].append(sup)
+        return new, [_sum_to(p, self.device) for p in parts]
 
     @staticmethod
     def _extensions(ranks, slots, pair_packed, prefix_packed, k_items):
@@ -669,34 +826,44 @@ class HPrepostMiner:
         # prefix mask {q2 : q2 < r} — both 8 ranks per byte
         pair_packed = np.packbits(pair_ok, axis=1)
         prefix_packed = np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
-        # planar (3, K, W) copy of the N-lists: the wave kernel reads each
-        # candidate's (pre, post, count) rows as contiguous W-wide rows
-        planes = prepared.packed[0].permute(2, 0, 1).contiguous()
-        prev_state = planes[2]  # level-2 parents: singleton counts, packed[0, ..., 2]
+        # planar (3, K, W) copy of each shard's N-lists, made on its position
+        # (d, 0): the wave kernel reads each candidate's (pre, post, count)
+        # rows as contiguous W-wide rows
+        planes = self._position_planes(
+            [p.permute(2, 0, 1).contiguous() for p in prepared.packed])
+        # level-2 parents: each shard's singleton counts, packed[d][..., 2]
+        prev_state = [[p[2] for p in row] for row in planes]
         qs, ps = np.nonzero(C >= min_count)
         ranks = np.stack([qs, ps], axis=1).astype(np.int32)  # (C, 2) ascending
         parents = ps.astype(np.int64)  # level-2 parents: singleton rank slots
         qarr = qs.astype(np.int32)
         level = 2
+        slots_per_shard = 0  # of the *previous* wave (for locality bucketing)
         pending = None  # (ranks, slot_of, supports read) of the wave in flight
         # in-kernel early stop is only sound where the kernel sees *final*
-        # supports: one data shard, which this miner always is
-        stop_count = min_count if cfg.early_stop else 0
+        # supports: one data shard (no cross-shard sum completes them later)
+        stop_count = min_count if (cfg.early_stop and self.D == 1) else 0
 
         t0 = time.perf_counter()
         while len(ranks) or pending is not None:
             dispatched = None
             if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
-                idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr)
+                idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
+                                                     slots_per_shard)
+                local = level > 2 and cfg.locality_dispatch
                 stages["planned_candidates"] += float(len(ranks))
                 failures.fire("mine.wave")
                 with trace.span("mine.wave", k=level, candidates=len(ranks)):
-                    new_state, sups = self._wave(planes, prev_state, idx, len(ranks), stop_count)
+                    new_state, sups = self._mesh_wave(
+                        planes, prev_state, idx, self._group_live(slot_of, Cpad), level, local,
+                        stop_count)
                     read = _HostRead(sups)
                 self.stage_counters["waves"] += 1
                 dispatched = (ranks, parents, slot_of, read)
-                peak = max(peak, int(new_state.numel() * 4))
+                # per position, as the reference counts it
+                peak = max(peak, int(new_state[0][0].numel() * 4))
                 prev_state = new_state
+                slots_per_shard = Cpad // self._Mb
                 level += 1
             if not cfg.pipeline_waves and dispatched is not None:
                 # degrade: block right away (no speculative wave in flight,
@@ -758,18 +925,19 @@ class HPrepostMiner:
         stages["mining_waves"] = time.perf_counter() - t0
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
 
-    def extend_with_sentinel(self, prepared: PreparedDB):
-        """``(planes, singleton)``: the prepared N-lists as the wave kernel
-        reads them, ``(3, K_s + 1, W_s)`` int32, with one all-padding rank row
-        ``(INT32_MAX, -1, 0)`` at index ``K_s`` — the slot
-        ``SegmentHandle.g2l`` routes globally-known-but-locally-absent items
-        to — and ``singleton = planes[2]`` (a contiguous plane). Built once
-        per segment; the queries never rebuild it."""
+    def extend_with_sentinel(self, prepared: PreparedDB, shard: int = 0):
+        """``(planes, singleton)`` of data shard ``shard``: its N-lists as the
+        wave kernel reads them, ``(3, K_s + 1, W_s)`` int32 on the shard's
+        device, with one all-padding rank row ``(INT32_MAX, -1, 0)`` at index
+        ``K_s`` — the slot ``SegmentHandle.g2l`` routes globally-known-but-
+        locally-absent items to — and ``singleton = planes[2]`` (a contiguous
+        plane). Built once per segment; the queries never rebuild it."""
         if prepared.packed is None:
             raise ValueError("cannot extend an F1-only PreparedDB (no N-lists packed)")
         K, W = prepared.fl.k, prepared.width
-        planes = torch.empty((3, K + 1, W), dtype=torch.int32, device=prepared.packed.device)
-        planes[:, :K] = prepared.packed[0].permute(2, 0, 1)
+        packed = prepared.packed[shard]
+        planes = torch.empty((3, K + 1, W), dtype=torch.int32, device=packed.device)
+        planes[:, :K] = packed.permute(2, 0, 1)
         planes[0, K] = INF32
         planes[1, K] = -1
         planes[2, K] = 0
@@ -794,8 +962,8 @@ class HPrepostMiner:
         reduce step): candidates are planned once against the global
         F-lists (``items``/``supports`` in stream-rank order, ``C`` the
         summed upper-triangular F2 matrix in the same rank space), each
-        wave launches the fused intersect kernel (B1) once per segment, and
-        the per-candidate supports are summed across segments before
+        wave launches the fused intersect kernel (B1) once per segment per
+        mesh position, and the per-candidate supports are summed across segments before
         thresholding — exact because segments partition the transactions,
         so itemset supports are additive over them.
 
@@ -879,6 +1047,7 @@ class HPrepostMiner:
         parents = ps.astype(np.int64)
         qarr = qs.astype(np.int32)
         level = 2
+        slots_per_shard = 0
         pending = None  # (ranks, slot_of, token) of the wave in flight
 
         t0 = time.perf_counter()
@@ -890,13 +1059,16 @@ class HPrepostMiner:
                     ranks, parents, qarr = ranks[km], parents[km], qarr[km]
             dispatched = None
             if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
-                idx, slot_of, _ = self._pack_wave(ranks, parents, qarr)
+                idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
+                                                     slots_per_shard)
                 stages["planned_candidates"] += float(len(ranks))
                 with trace.span("mine.wave", k=level, candidates=len(ranks),
                                 segments=executor.n_segments):
-                    token = executor.dispatch(level, idx, len(ranks))
+                    token = executor.dispatch(level, idx, self._group_live(slot_of, Cpad),
+                                              level > 2 and cfg.locality_dispatch)
                 dispatched = (ranks, parents, slot_of, token)
                 peak = max(peak, int(executor.state_bytes))
+                slots_per_shard = Cpad // self._Mb
                 level += 1
             if not cfg.pipeline_waves and dispatched is not None:
                 pending = (dispatched[0], dispatched[2], dispatched[3])

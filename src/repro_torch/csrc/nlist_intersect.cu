@@ -280,13 +280,17 @@ int launch_t(const int* a_pre, const int* a_post, const int* a_cnt, const long l
              int la_block, long long min_count, int* out, int* sup, cudaStream_t s) {
   const size_t smem = (size_t)3 * SPT * NT * sizeof(int);
   auto kernel = wave_kernel<kMasked, NT, SPT>;
-  // dynamic plus static shared memory above 48 KB needs the opt-in
-  static bool opted_in = false;
-  if (!opted_in && smem >= 32 * 1024) {
+  // dynamic plus static shared memory above 48 KB needs the opt-in, which
+  // holds for the current card only: a mesh over several cards opts in on each
+  constexpr int kCards = 64;
+  static bool opted_in[kCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem >= 32 * 1024 && (dev >= kCards || !opted_in[dev])) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    if (dev < kCards) opted_in[dev] = true;
   }
   kernel<<<(unsigned)B, NT, smem, s>>>(a_pre, a_post, a_cnt, a_idx, y_pre, y_post, y_idx, y_cnt,
                                        c_idx, La, Ly, n_live, la_block, min_count, out, sup);
@@ -308,7 +312,7 @@ extern "C" int nlist_wave_launch(const int* a_pre, const int* a_post, const int*
                                  int* out, int* sup, void* stream) {
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int sms = 0;  // one card: asked once
+  static int sms = 0;  // asked once: a mesh's cards are of one model
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);

@@ -8,6 +8,15 @@
 ``hprepost`` runs on the CUDA device unless ``--device cpu`` is given,
 which runs every kernel's plain PyTorch version on the CPU.
 
+``--mesh DxM`` (or ``PxDxM``) runs it on a mesh: D data shards, each with
+its own PPC-tree and N-lists, by M candidate groups. The mesh takes the
+first D·M CUDA devices and raises when there are fewer; with ``--device``
+every position goes on that one device (``--device cpu --mesh 4x2`` puts
+eight positions on the CPU):
+
+    PYTHONPATH=src python -m repro_torch.launch.mine --dataset mushroom --scale 0.05 \\
+        --min-sup 0.3 --device cpu --mesh 4x2
+
 ``--sweep`` runs the paper's x-axis (several thresholds over one database)
 through the engine's planned path — prep stages run once at the loosest
 threshold, every threshold is served from the shared PreparedDB:
@@ -54,10 +63,23 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 
 from repro_torch.data import corpus, synth
 from repro_torch.mining import MineSpec, MiningEngine, list_miners
 from repro_torch.mining.tune import registered_backends
+
+
+def _placement(args) -> dict:
+    """The engine's device or mesh from ``--device`` / ``--mesh``."""
+    if args.mesh is None:
+        return {"device": args.device}
+    from repro_torch.launch.mesh import make_mesh_from_spec
+
+    devices = None
+    if args.device is not None:
+        devices = [args.device] * math.prod(int(x) for x in args.mesh.split("x"))
+    return {"mesh": make_mesh_from_spec(args.mesh, devices)}
 
 
 def _report_plans(engine, expect: str | None) -> None:
@@ -141,7 +163,7 @@ def _serve(args, rows, n_items: int, name: str, spec: MineSpec):
     snap = None
     with contextlib.ExitStack() as stack:
         svc = stack.enter_context(MiningService(
-            device=args.device, snapshot_dir=args.snapshot_dir, batch_window_s=0.05
+            **_placement(args), snapshot_dir=args.snapshot_dir, batch_window_s=0.05
         ))
         if args.stats_interval:
             emitter = stack.enter_context(StatsEmitter(
@@ -230,7 +252,7 @@ def _append(args, rows, n_items: int, name: str, spec: MineSpec):
     stream replayed from empty must equal the final answer."""
     import numpy as np
 
-    engine = MiningEngine(device=args.device, snapshot_dir=args.snapshot_dir)
+    engine = MiningEngine(**_placement(args), snapshot_dir=args.snapshot_dir)
     sspec = None
     if args.window:
         from repro_torch.mining.stream import StreamSpec
@@ -419,6 +441,12 @@ def main(argv=None):
              "with zero trials (warm)",
     )
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument(
+        "--mesh", default=None, metavar="DxM|PxDxM",
+        help="hprepost on a mesh of D data shards by M candidate groups "
+             "(default 1x1: one device); the first D*M CUDA devices, or every "
+             "position on --device when it is given",
+    )
     args = ap.parse_args(argv)
     if args.expect_plans and not args.tune:
         ap.error("--expect-plans needs --tune")
@@ -454,7 +482,7 @@ def main(argv=None):
         return _serve(args, rows, n_items, name, spec)
     if args.append:
         return _append(args, rows, n_items, name, spec)
-    engine = MiningEngine(device=args.device, snapshot_dir=args.snapshot_dir)
+    engine = MiningEngine(**_placement(args), snapshot_dir=args.snapshot_dir)
     if args.sweep:
         fracs = [float(s) for s in args.sweep.split(",")]
         results = engine.sweep(rows, n_items, spec, fracs)

@@ -1,6 +1,7 @@
-"""MiningEngine: a resident mining session on one torch device.
+"""MiningEngine: a resident mining session on one torch device or a mesh.
 
-The engine binds a device once, lazily constructs one frontend per
+The engine binds a device (or a ``repro_torch.launch.mesh.Mesh`` of
+devices) once, lazily constructs one frontend per
 registered algorithm, and routes every ``submit`` through the unified
 ``MineSpec -> MineResult`` surface. The hprepost frontend keys its
 ``HPrepostMiner`` instances on the device-level part of the spec, so
@@ -66,6 +67,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.fault import failures
 from repro_torch.mining.registry import Miner, get_miner
 from repro_torch.mining.result import MineResult
@@ -100,20 +102,32 @@ class MineRequest:
 
 
 class MiningEngine:
-    """Session front-door over the miner registry, bound to one torch device.
+    """Session front-door over the miner registry, bound to one torch device
+    or to a mesh of them.
 
     ``device=None`` binds CUDA: the hprepost frontend raises when there is
     none, unless ``device="cpu"`` is given (the plain PyTorch versions of
-    the kernels). Host algorithms ignore the device.
+    the kernels). ``mesh`` (``repro_torch.launch.mesh.make_mesh``) binds a
+    D×M mesh instead, with ``data_axis``/``model_axis`` as
+    ``HPrepostFrontend`` reads them; every mesh-bound miner in the session
+    shares it. Host algorithms ignore both.
     """
 
     def __init__(self, device=None,
                  prep_cache_bytes: int = 1 << 30,
                  snapshot_dir: str | None = None,
                  snapshot_store: SnapshotStore | None = None,
-                 snapshot_bytes: int = 4 << 30):
-        # normalized, not checked: the device miners check it when built
-        self.device = torch.device("cuda" if device is None else device)
+                 snapshot_bytes: int = 4 << 30, *,
+                 mesh=None, data_axis=None, model_axis="model"):
+        if mesh is not None and device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        # normalized, not checked: the device miners check it when built.
+        # With a mesh, its first position (the hprepost miners' reduce device)
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else torch.device("cuda" if device is None else device))
         self._frontends: dict[str, Miner] = {}
         self.stats = {
             "submits": 0,  # requests answered (planned or not)
@@ -172,12 +186,25 @@ class MiningEngine:
         with self._lock:
             fe = self._frontends.get(algorithm)
             if fe is None:
-                fe = get_miner(algorithm, device=self.device)
+                fe = get_miner(algorithm, **self._placement())
                 if hasattr(fe, "tuner"):
                     fe.tuner = self.tuner
                 self._frontends[algorithm] = fe
                 self.stats["frontends_built"] += 1
             return fe
+
+    def _placement(self) -> dict:
+        """Where the frontends run: the engine's mesh, or its device."""
+        if self.mesh is None:
+            return {"device": self.device}
+        return {"mesh": self.mesh, "data_axis": self.data_axis, "model_axis": self.model_axis}
+
+    def devices(self) -> list[torch.device]:
+        """The distinct devices the session's device miners run on (raises,
+        as the miners do, when CUDA is bound and absent)."""
+        if self.mesh is not None:
+            return self.mesh.distinct_devices()
+        return [resolve_device(self.device)]
 
     @property
     def miners_built(self) -> int:
@@ -477,7 +504,7 @@ class MiningEngine:
             _, prepared = ent
             # mine with the *current* spec's miner, not the one that built
             # the entry: cache keys span execution configs, and the
-            # PreparedDB layout only depends on the device (engine-wide)
+            # PreparedDB layout only depends on the mesh (engine-wide)
             res = fe.mine_prepared(fe.miner_for(spec), prepared, spec, prep_shared=True)
             res.service_stats["prep_source"] = source
             self._observe_result(res)

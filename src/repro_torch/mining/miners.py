@@ -3,9 +3,10 @@ front door.
 
 Host baselines (prepost, prepost+, fpgrowth, apriori, the brute-force
 oracle) are thin adapters over ``repro_torch.core``; ``hprepost`` wraps
-``HPrepostMiner`` on a torch device and keeps one resident instance per
-device config, so repeated mines through the same frontend (or a
-``MiningEngine``) reuse it.
+``HPrepostMiner`` on a mesh of torch devices (the 1×1 mesh on one device
+unless a mesh is bound) and keeps one resident instance per device config,
+so repeated mines through the same frontend (or a ``MiningEngine``) reuse
+it.
 """
 from __future__ import annotations
 
@@ -15,10 +16,16 @@ import time
 import numpy as np
 
 from repro_torch.core import patterns as pat
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.mining.registry import register_miner
 from repro_torch.mining.result import MineResult
 from repro_torch.mining.spec import MineSpec
+
+
+def default_mesh(device=None):
+    """The 1×1 (data, model) mesh on ``device`` (CUDA when None, raising
+    when there is none), used when no mesh is bound explicitly."""
+    return make_mesh((1, 1), ("data", "model"), devices=[device])
 
 
 def _select_patterns(itemsets: dict, spec: MineSpec) -> dict:
@@ -38,10 +45,10 @@ class _MinerBase:
     name = "?"
     exhaustive = True
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, *, mesh=None, data_axis=None, model_axis="model"):
         # accepted uniformly so every registered miner is built the same
-        # way; host miners run on numpy and ignore it
-        del device
+        # way; host miners run on numpy and ignore them
+        del device, mesh, data_axis, model_axis
 
     def _run(self, rows, n_items, min_count, spec):
         """-> (itemsets, total_count, n_explicit, peak_bytes, stages, flist)."""
@@ -159,8 +166,11 @@ class BruteForceFrontend(_MinerBase):
 
 @register_miner("hprepost")
 class HPrepostFrontend(_MinerBase):
-    """The paper's contribution on one torch device (CUDA by default; raises
-    when none is present unless ``device="cpu"`` is passed).
+    """The paper's contribution on a mesh of torch devices: ``mesh``, or the
+    1×1 mesh on ``device`` (CUDA by default; raises when none is present
+    unless ``device="cpu"`` is passed). ``data_axis=None`` shards rows over
+    ``("pod", "data")`` when the mesh has a pod axis, else over ``data``; a
+    ``model_axis`` the mesh lacks means one candidate group.
 
     One ``HPrepostMiner`` is kept per device-level config; specs that
     differ only in threshold / ``max_k`` / patterns reuse it, so a resident
@@ -169,8 +179,17 @@ class HPrepostFrontend(_MinerBase):
 
     exhaustive = True
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, *, mesh=None, data_axis=None, model_axis="model"):
+        if mesh is None:
+            mesh = default_mesh(device)
+        elif device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.mesh = mesh
+        if data_axis is None:
+            data_axis = ("pod", "data") if "pod" in mesh.shape else "data"
+        self.data_axis = data_axis
+        self.model_axis = model_axis if model_axis in mesh.axis_names else None
+        self.device = mesh.devices.flat[0]
         self._miners: dict = {}
         # a serving layer may reach miner_for from a prep thread while the
         # caller thread serves other requests: one lock, one miner per
@@ -190,6 +209,7 @@ class HPrepostFrontend(_MinerBase):
             nlist_width=spec.nlist_width,
             candidate_unit=spec.candidate_unit,
             la_block=spec.la_block,
+            partition_candidates=spec.partition_candidates,
             backend=spec.backend,
             max_f1=spec.max_f1,
             max_itemsets=spec.max_itemsets,
@@ -211,7 +231,10 @@ class HPrepostFrontend(_MinerBase):
         with self._miners_lock:
             miner = self._miners.get(cfg)
             if miner is None:
-                miner = self._miners[cfg] = HPrepostMiner(self.device, config=cfg)
+                miner = self._miners[cfg] = HPrepostMiner(
+                    config=cfg, mesh=self.mesh, data_axis=self.data_axis,
+                    model_axis=self.model_axis,
+                )
                 self.miners_built += 1
             miner.tuner = self.tuner
         return miner

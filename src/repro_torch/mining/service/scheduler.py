@@ -1,5 +1,5 @@
 """GroupScheduler: overlapped execution across planned groups, on one
-torch device.
+torch device or a mesh of them.
 
 The miner software-pipelines the wave loop *within* one group (wave l+1
 dispatched before wave l's supports land). This lifts the same idea one
@@ -33,22 +33,24 @@ thread-safe and has no user-visible streams) does not have:
     so a prep thread and a serving thread sharing it would have the card
     run their work in series, and ``prepare``'s host reads (``hist.cpu()``,
     ``C.cpu()``) would wait behind the other group's queued waves. The prep
-    thread therefore runs ``engine._group_acquire`` under
-    ``torch.cuda.stream(prep_stream)``, a stream this scheduler owns; the
-    serving thread waves on its own current stream. The kernel wrappers
-    launch on the current stream and the miner's ``_HostRead`` records its
-    event there, so nothing below this module changes.
-  - Hand-off. An acquire ends by recording an event on the prep stream,
-    and the serving stream waits on it before the group's first wave. That
+    thread therefore runs ``engine._group_acquire`` with its own stream
+    current on every CUDA device of the engine (``prep_streams``, one per
+    distinct device of its mesh); the serving thread waves on its own
+    current streams. The kernel wrappers launch on the current stream and
+    the miner's ``_HostRead`` records its events there, so nothing below
+    this module changes.
+  - Hand-off. An acquire ends by recording an event on each prep stream,
+    and each device's serving stream waits on its event before the group's
+    first wave. That
     ``prepare`` happens to synchronise its last stage through ``C.cpu()``
     is no contract: it does not hold for a K <= 1 prepare, nor for a
     ``cache`` or ``snapshot`` acquire, whose host-to-device copy is queued
     on the prep stream.
-  - Lifetime. The serving stream ``record_stream``s the PreparedDB's
-    device tensor (``packed``) before reading it. The block was allocated
-    on the prep stream; without the mark, an LRU eviction (or a later prep
-    on the prep stream) could have the caching allocator hand it out again
-    while this group's waves still read it.
+  - Lifetime. The serving streams ``record_stream`` the PreparedDB's
+    device tensors (``packed``, one per data shard) before reading them.
+    The blocks were allocated on the prep streams; without the mark, an LRU
+    eviction (or a later prep on a prep stream) could have the caching
+    allocator hand one out again while this group's waves still read it.
   - The CPU has no streams: the same code runs with the stream steps
     skipped (the path the tests take). Nothing falls back: a failed
     acquire or serve resolves that group's slots with its error.
@@ -65,7 +67,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import on_streams, record_ready, side_streams, wait_ready
 from repro_torch.mining.engine import MineRequest, MiningEngine
 from repro_torch.mining.service.admission import DeadlineExceeded
 from repro_torch.mining.telemetry import trace
@@ -82,9 +84,9 @@ class GroupScheduler:
         self.engine = engine
         self.telemetry = engine.telemetry  # shared latency registry
         self.overlap = overlap
-        dev = resolve_device(engine.device)
-        # the prep thread's own stream (CUDA only; see the module docstring)
-        self.prep_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        # the prep thread's own streams, one per CUDA device of the engine
+        # (none on the CPU; see the module docstring)
+        self.prep_streams = side_streams(engine.devices())
         self._host_pool = ThreadPoolExecutor(
             max_workers=max(1, host_workers), thread_name_prefix="mine-host"
         )
@@ -238,27 +240,22 @@ class GroupScheduler:
     # ---------------------------------------------------------------- streams
     def _acquire_on_prep_stream(self, reqs, key):
         """The prep thread's job: ``engine._group_acquire`` on the prep
-        stream -> ``(acq, ready)``, ``ready`` an event recorded after the
-        acquire's last device work (None off CUDA)."""
-        if self.prep_stream is None:
-            return self.engine._group_acquire(reqs, key), None
-        with torch.cuda.stream(self.prep_stream):
+        streams -> ``(acq, ready)``, ``ready`` the ``(device, event)`` pairs
+        recorded after the acquire's last device work (None off CUDA)."""
+        with on_streams(self.prep_streams):
             acq = self.engine._group_acquire(reqs, key)
-            ready = torch.cuda.Event()
-            ready.record(self.prep_stream)
+            ready = record_ready(self.prep_streams)
         return acq, ready
 
     def _hand_off(self, acq, ready) -> None:
-        """Order the serving stream after the acquire (``ready``) and mark
-        the PreparedDB's device tensor as in use on it, so the allocator
-        cannot reuse its block before this group's waves are done."""
+        """Order the serving streams after the acquire (``ready``) and mark
+        the PreparedDB's device tensors as in use on them, so the allocator
+        cannot reuse their blocks before this group's waves are done."""
         if ready is None:
             return
-        stream = torch.cuda.current_stream(self.prep_stream.device)
-        stream.wait_event(ready)
-        packed = acq[1].packed
-        if packed is not None:
-            packed.record_stream(stream)
+        wait_ready(ready)
+        for t in acq[1].packed or ():
+            t.record_stream(torch.cuda.current_stream(t.device))
 
     # --------------------------------------------------------------- helpers
     @staticmethod

@@ -102,6 +102,7 @@ class MiningService:
 
     ``device`` binds the engine's torch device: CUDA by default, raising
     when there is none (``device="cpu"`` runs the kernels' plain versions).
+    ``mesh`` binds a mesh of devices instead (``MiningEngine(mesh=...)``).
     ``batch_window_s`` is the coalescing window: once a request arrives,
     the worker keeps collecting for that long so concurrent callers land
     in one planned batch (sweep requests on one database become one
@@ -114,15 +115,16 @@ class MiningService:
     not fit resolve with ``Overloaded``.
     """
 
-    def __init__(self, engine: MiningEngine | None = None, *, device=None,
+    def __init__(self, engine: MiningEngine | None = None, *, device=None, mesh=None,
                  snapshot_dir: str | None = None, batch_window_s: float = 0.02,
                  host_workers: int = 4, max_queue_depth: int | None = None,
                  max_queue_bytes: int | None = None, **engine_kwargs):
-        if engine is not None and (device is not None or snapshot_dir is not None
-                                   or engine_kwargs):
+        if engine is not None and (device is not None or mesh is not None
+                                   or snapshot_dir is not None or engine_kwargs):
             raise ValueError("pass an engine or engine-construction kwargs, not both")
         self.engine = engine if engine is not None else MiningEngine(
-            resolve_device(device), snapshot_dir=snapshot_dir, **engine_kwargs
+            resolve_device(device) if mesh is None else device, mesh=mesh,
+            snapshot_dir=snapshot_dir, **engine_kwargs,
         )
         self.scheduler = GroupScheduler(self.engine, host_workers=host_workers)
         self.batch_window_s = float(batch_window_s)

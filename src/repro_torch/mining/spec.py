@@ -37,6 +37,7 @@ class MineSpec:
     candidate_unit: int = 256  # hprepost: candidate buffers, pow2 multiples
     nlist_width: int | None = None  # hprepost: static N-list width (None = auto)
     la_block: int = 512  # hprepost: A-codes per early-stop liveness tile
+    partition_candidates: bool = True  # hprepost mode B (PFP groups)
     max_f1: int = 4096  # guard on |F-list|
     max_itemsets: int = 2_000_000
     early_stop: bool = True  # hprepost: early-stopping intersections (host

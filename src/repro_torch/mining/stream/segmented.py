@@ -39,25 +39,27 @@ from repro_torch.core.hprepost import PreparedDB, SegmentHandle
 class Segment:
     """One appended batch, prepared and device-resident.
 
-    ``planes`` is the only device copy of the segment's N-lists: the
-    ``(3, K_s + 1, W_s)`` int32 planes the wave kernel reads, sentinel row
-    at ``K_s`` (``HPrepostMiner.extend_with_sentinel``). ``prepared.packed``
-    is a ``(1, K_s, W_s, 3)`` view of the same memory (what ``to_host``
-    gathers), not a second buffer. (The reference keeps a ``(D, K_s, W_s, 3)``
-    buffer and a sentinel-extended copy of it.)"""
+    ``shard_planes`` is the only device copy of the segment's N-lists: per
+    data shard of the miner's mesh, the ``(3, K_s + 1, W_s)`` int32 planes
+    the wave kernel reads, sentinel row at ``K_s``
+    (``HPrepostMiner.extend_with_sentinel``). Each of ``prepared.packed`` is
+    a ``(K_s, W_s, 3)`` view of the same memory (what ``to_host`` gathers),
+    not a second buffer. (The reference keeps a ``(D, K_s, W_s, 3)`` buffer
+    and a sentinel-extended copy of it.)"""
 
     seg_id: int
     rows: np.ndarray  # host copy, row-padded (all-PAD pad rows)
     n_rows: int  # real (pre-padding) transaction count
     prepared: PreparedDB
-    planes: Any  # device (3, K_s + 1, W_s) int32, sentinel row appended
+    shard_planes: tuple  # per data shard: device (3, K_s + 1, W_s) int32, sentinel row appended
     local_items: np.ndarray  # items in this segment's tree, stream order
     item_to_local: np.ndarray  # (n_items,) int32: item -> local rank | -1
     digest: str  # content digest of ``rows`` (snapshot identity)
     n_batches: int = 1  # appended batches folded in (compaction merges sum)
     tick: int = 0  # append tick this segment arrived at (decay ages off it)
-    # CUDA event recorded after ``planes`` were built when that happened on
-    # another stream than the queries' (a compaction's), else None
+    # (device, CUDA event) pairs recorded after the planes were built when
+    # that happened on other streams than the queries' (a compaction's),
+    # else None
     ready: Any = None
 
     @property
@@ -65,8 +67,9 @@ class Segment:
         return len(self.local_items)
 
     @property
-    def singleton(self):
-        return self.planes[2]
+    def planes(self):
+        """Data shard 0's planes: the whole segment on a one-shard mesh."""
+        return self.shard_planes[0]
 
     @property
     def nbytes(self) -> int:
@@ -74,8 +77,8 @@ class Segment:
 
     @property
     def device_bytes(self) -> int:
-        """Bytes of the segment's device state (its planes)."""
-        return int(self.planes.numel() * self.planes.element_size())
+        """Bytes of the segment's device state (its planes, every shard)."""
+        return sum(int(p.numel() * p.element_size()) for p in self.shard_planes)
 
 
 def segment_handles(segments: "list[Segment]", order_arr: np.ndarray) -> list[SegmentHandle]:
@@ -87,7 +90,8 @@ def segment_handles(segments: "list[Segment]", order_arr: np.ndarray) -> list[Se
     for s in segments:
         loc = s.item_to_local[order_arr]
         g2l = np.where(loc >= 0, loc, s.k).astype(np.int32)
-        out.append(SegmentHandle(planes=s.planes, singleton=s.singleton, g2l=g2l,
+        out.append(SegmentHandle(planes=s.shard_planes,
+                                 singleton=tuple(p[2] for p in s.shard_planes), g2l=g2l,
                                  ready=s.ready))
     return out
 

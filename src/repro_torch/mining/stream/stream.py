@@ -28,12 +28,12 @@ On CUDA, an append's segment is built on the appending thread's current
 stream, which is the stream its queries run on (the service serves both
 from its worker thread). A compaction may run on a thread of its own
 (``compact_async``), whose current stream would be the device's default
-stream; so every merge is built under the stream's own compaction stream,
-which records an event after the build. A query waits on that event before
-its first wave on the segment and ``record_stream``s the planes on its own
-stream (see ``LocalSegmentExecutor.begin``), so a later drop of the
-segment cannot have the caching allocator reuse the block while a wave
-still reads it.
+stream; so every merge is built under the stream's own compaction streams
+(one per CUDA device of the miner's mesh), which record an event each after
+the build. A query waits on those events before its first wave on the
+segment and ``record_stream``s the planes on its own streams (see
+``LocalSegmentExecutor.begin``), so a later drop of the segment cannot have
+the caching allocator reuse a block while a wave still reads it.
 """
 from __future__ import annotations
 
@@ -44,10 +44,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from repro_torch.core import encoding as enc
 from repro_torch.core.hprepost import PreparedDB
+from repro_torch.device import on_streams, record_ready, side_streams
 from repro_torch.fault import failures
 from repro_torch.mining.engine import MiningEngine
 from repro_torch.mining.result import MineResult
@@ -91,9 +91,9 @@ def build_segment(miner, store, n_items: int, rows: np.ndarray, n_rows_real: int
     histogram kernel, Job 2 / pack / F2 only). ``stats`` gets the
     ``seg_prepares`` / ``seg_snapshot_*`` counters bumped in place.
 
-    The N-lists are then laid out once as the wave kernel's planes, sentinel
-    row included, and ``prepared.packed`` becomes a view of them: after the
-    snapshot spill nothing needs a second device copy."""
+    The N-lists are then laid out once per data shard as the wave kernel's
+    planes, sentinel row included, and ``prepared.packed`` becomes views of
+    them: after the snapshot spill nothing needs a second device copy."""
     R0 = len(rows)
     Rp = -(-R0 // row_pad) * row_pad
     if Rp != R0:
@@ -133,13 +133,13 @@ def build_segment(miner, store, n_items: int, rows: np.ndarray, n_rows_real: int
                 store.put(key, prepared.to_host())
             except Exception:
                 stats["seg_snapshot_spill_failures"] += 1
-    planes, _ = miner.extend_with_sentinel(prepared)
-    prepared.packed = planes[:, :prepared.fl.k].permute(1, 2, 0).unsqueeze(0)
+    shard_planes = tuple(miner.extend_with_sentinel(prepared, d)[0] for d in range(miner.D))
+    prepared.packed = tuple(p[:, :prepared.fl.k].permute(1, 2, 0) for p in shard_planes)
     item_to_local = np.full(n_items, -1, np.int32)
     item_to_local[local_items] = np.arange(len(local_items), dtype=np.int32)
     seg = Segment(
         seg_id=seg_id, rows=rows, n_rows=int(n_rows_real),
-        prepared=prepared, planes=planes,
+        prepared=prepared, shard_planes=shard_planes,
         local_items=local_items, item_to_local=item_to_local,
         digest=digest[2],
     )
@@ -178,8 +178,9 @@ class StreamingMiner:
         self._compact_pending: set[int] | None = None
         self._compact_future = None
         self._compact_pool: ThreadPoolExecutor | None = None
-        # the compaction's own CUDA stream (see the module docstring)
-        self._compact_stream = None
+        # the compaction's own CUDA streams, one per device of the miner's
+        # mesh (see the module docstring); None until the first compaction
+        self._compact_streams: list | None = None
         from repro_torch.mining.continuous import StandingRegistry
 
         self.standing = StandingRegistry(self)
@@ -532,18 +533,12 @@ class StreamingMiner:
                 # when their batches arrived) have stable positions even if
                 # appends landed since the pass was scheduled
                 local_items = self.db.present_in_order(hist)
-            dev = self.miner.device
-            if dev.type == "cuda":
-                if self._compact_stream is None:
-                    self._compact_stream = torch.cuda.Stream(dev)
-                with torch.cuda.stream(self._compact_stream):
-                    merged, _ = self._build_segment(
-                        rows, sum(v.n_rows for v in victims), hist, local_items)
-                    merged.ready = torch.cuda.Event()
-                    merged.ready.record(self._compact_stream)
-            else:
-                merged, _ = self._build_segment(rows, sum(v.n_rows for v in victims),
-                                                hist, local_items)
+            if self._compact_streams is None:
+                self._compact_streams = side_streams(self.miner.devices)
+            with on_streams(self._compact_streams):
+                merged, _ = self._build_segment(
+                    rows, sum(v.n_rows for v in victims), hist, local_items)
+                merged.ready = record_ready(self._compact_streams)
             merged.n_batches = sum(v.n_batches for v in victims)
             merged.tick = max(v.tick for v in victims)
             with self._lock:

@@ -526,3 +526,81 @@ def test_async_compaction_racing_a_served_query(cuda):
             assert merged and all((s.ready is not None) == (cuda.type == "cuda") for s in merged)
         sm.close()
     torch.cuda.synchronize()
+
+
+def test_mesh_on_one_card(cuda):
+    """A (2, 2) mesh whose four positions share the card: the mine equals the
+    same mesh on the CPU (payload and itemsets) and the host PrePost miner;
+    B3 and B4 launch once per data shard, every wave launches B1 once per
+    position and B2 never (two shards: supports are partial per launch)."""
+    import repro_torch.kernels as kernels
+    from repro_torch.core.prepost import mine_prepost
+    from repro_torch.launch.mesh import make_mesh
+
+    rows, n_items = load("mushroom", scale=0.2)
+    mc = int(np.ceil(0.15 * len(rows)))
+    axes = ("data", "model")
+    gpu = HPrepostMiner(mesh=make_mesh((2, 2), axes, [cuda] * 4))
+    cpu = HPrepostMiner(mesh=make_mesh((2, 2), axes, ["cpu"] * 4))
+    assert gpu.devices == [torch.device("cuda", torch.cuda.current_device())]
+    kernels.reset_launches()
+    prep = gpu.prepare(rows, n_items, mc)
+    got = kernels.launches()
+    assert got["histogram"] == got["cooccur"] == 2
+    want = cpu.prepare(rows, n_items, mc).to_host()
+    for k, v in prep.to_host().items():
+        w = want[k]
+        assert (v.tobytes() == w.tobytes()) if isinstance(v, np.ndarray) else v == w, k
+    kernels.reset_launches()
+    res = gpu.mine_prepared(prep, mc)
+    got = kernels.launches()
+    assert got["nlist_intersect"] == 4 * gpu.stage_counters["waves"] > 0
+    assert got["nlist_intersect_es"] == 0
+    assert res.itemsets == cpu.mine(rows, n_items, mc).itemsets
+    assert res.itemsets == mine_prepost(rows, n_items, mc).itemsets
+    torch.cuda.synchronize()
+
+
+def test_mesh_across_cards(cuda):
+    """A mesh over distinct cards (the first 4, or 2): the mine with the
+    shuffle and with locality dispatch, a service batch (one prep stream per
+    card) and a compacting stream (one compaction stream per card) equal the
+    same mesh on the CPU and the host PrePost miner."""
+    from repro_torch.core.prepost import mine_prepost
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.mining import MineSpec, MiningEngine, MiningService
+    from repro_torch.mining.stream import StreamSpec
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs at least two CUDA devices for a mesh over distinct cards")
+    shape = (2, 2) if cards >= 4 else (2, 1)
+    axes = ("data", "model")
+    mesh = make_mesh(shape, axes)
+    assert len(mesh.distinct_devices()) == int(np.prod(shape))
+    cpu_mesh = make_mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
+    rows, n_items = load("mushroom", scale=0.2)
+    mc = int(np.ceil(0.15 * len(rows)))
+    want = mine_prepost(rows, n_items, mc).itemsets
+    for loc in (True, False):
+        gpu = HPrepostMiner(config=HPrepostConfig(locality_dispatch=loc), mesh=mesh)
+        cpu = HPrepostMiner(config=HPrepostConfig(locality_dispatch=loc), mesh=cpu_mesh)
+        got, ref = gpu.prepare(rows, n_items, mc).to_host(), cpu.prepare(rows, n_items, mc).to_host()
+        for k, v in got.items():
+            assert (v.tobytes() == ref[k].tobytes()) if isinstance(v, np.ndarray) else v == ref[k], k
+        assert gpu.mine(rows, n_items, mc).itemsets == want
+    spec = MineSpec(algorithm="hprepost", min_sup=0.15)
+    with MiningService(mesh=mesh, batch_window_s=0.05) as svc:
+        assert len(svc.scheduler.prep_streams) == len(mesh.distinct_devices())
+        futs = svc.sweep(rows, n_items, spec, [0.3, 0.15])
+        assert [f.result(timeout=300).itemsets for f in futs][-1] == want
+    eng = MiningEngine(mesh=mesh)
+    ss = StreamSpec(max_segments=3, compact_fanin=2, compact_async=True)
+    for b in np.array_split(rows, 4):
+        eng.append(b, n_items, spec=spec, stream_spec=ss)
+    eng.stream().flush()
+    assert eng.stream_stats()["default"]["compactions"] >= 1
+    assert eng.submit_stream(spec).itemsets == want
+    eng.stream().close()
+    for d in mesh.distinct_devices():
+        torch.cuda.synchronize(d)

@@ -81,8 +81,30 @@ Phases, in order; any failure raises and exits non-zero:
      (every position shares one card here, so nothing of an interconnect
      is measured); last, each dataset warm on (1, 1) and (4, 2) under
      torch.profiler (device busy time and idle share).
-Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8 and
-9), and last the device line.
+ 10. HPrepost's JobTracker and TaskTrackers as live processes
+     (``MiningEngine(device="cuda", snapshot_dir=tmp).distribute(workers=2)``:
+     a coordinator that plans every wave on the host, and two spawned
+     worker processes, each with its own CUDA context on ``cuda:0``):
+     10a mushroom appended as 4 batches, each built on one worker (B4 once
+     per segment in that worker, no B3), placed over both workers; the
+     sweep 0.3/0.2/0.15 equal to the host PrePost miner, phase 8a's
+     4-batch stream and phase 4's one-shot answer, the workers' B1
+     launches = waves × segments and B2 none; 10b pumsb as 4 batches at
+     its full width (``max_f1=8192``), its query at 0.15 equal to the host
+     miner's, with each append's reply bytes (the segment's C block over
+     loopback) and walls; 10c the lower worker killed (the sweep unchanged,
+     every re-placed segment restored from snapshots), then a second
+     database with ``restart_budget=1`` whose worker dies one wave into a
+     query (``inject_fault``): the query replays bit-identically and the
+     worker is respawned; 10d ``MiningService(engine=...)`` stream Futures
+     against it, ``stats()["counters"]["respawns"]`` reading the
+     coordinator's; 10e spawn-to-hello per worker, append and query walls
+     (against 8a's single-process query), each worker's ``wave_rpc_s``
+     p50 and device memory. The workers' launch counters are read through
+     ``worker_stats()`` before a worker is killed or closed; every worker
+     is closed and none outlives the phase.
+Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9
+and 10), and last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
 either it exits non-zero and prints no result.
@@ -714,7 +736,7 @@ def stream_phase(K, data, host, smi: str):
     """Phase 8: streaming and continuous mining on the card (see the module
     docstring). Every time printed carries ``smi``, the card's name and
     power limit. -> (this phase's launches, the kernel entries at a pumsb
-    segment's shapes)."""
+    segment's shapes, 8a's 4-batch mushroom answers and query walls)."""
     from repro_torch.core import encoding as enc
     from repro_torch.data.synth import random_db
     from repro_torch.kernels.cooccur import ref as cooc_ref
@@ -843,6 +865,9 @@ def stream_phase(K, data, host, smi: str):
                 log(f"stream compaction mushroom/16: passes (segments before, after, ms) {passes}; "
                     f"query@0.15 on 1 segment {wall * 1e3:.2f}ms, answer unchanged [{smi}]")
             streams[S] = (eng, batches)
+            if S == 4:  # phase 10 holds the distributed database to these
+                stream4 = dict(answers={f: r.itemsets for f, r, _ in results},
+                               query_s=q_s)
 
         # 8b. pumsb at its full width: every item of a batch in its segment
         prows, pn = data["pumsb"]
@@ -1075,7 +1100,7 @@ def stream_phase(K, data, host, smi: str):
     total = {k: phase[k] + got[k] for k in got}
     if not (total["nlist_intersect"] and total["cooccur"]):
         raise AssertionError(f"a kernel of the streaming path was not launched in phase 8: {total}")
-    return total, extra
+    return total, extra, stream4
 
 
 def mesh_phase(K, data, host, smi: str, oneshot: dict, dev="cuda") -> dict[str, int]:
@@ -1264,6 +1289,265 @@ def mesh_phase(K, data, host, smi: str, oneshot: dict, dev="cuda") -> dict[str, 
                 del eng
     if not all(total.values()):
         raise AssertionError(f"a kernel of the mesh path was not launched in phase 9: {total}")
+    return total
+
+
+def distributed_phase(K, data, host, smi: str, stream4: dict, oneshot: dict,
+                      dev="cuda") -> dict[str, int]:
+    """Phase 10: HPrepost's JobTracker and TaskTrackers as live processes
+    (see the module docstring). ``stream4`` holds phase 8a's 4-batch
+    mushroom answers and query walls, ``oneshot`` phase 4's answers. The
+    kernels run in the worker processes, whose launch counters start at 0
+    when they are spawned and are read through ``worker_stats()`` before a
+    worker is killed or closed; the coordinator launches nothing. Every
+    number printed carries ``smi``. -> the workers' launches.
+    ``dev="cpu"`` rehearses the phase on the CPU (nothing launches there)."""
+    import multiprocessing
+
+    from repro_torch.mining import MineSpec, MiningEngine, MiningService
+    from repro_torch.mining.distributed import protocol
+
+    counting = dev == "cuda"
+    spec = MineSpec(algorithm="hprepost")
+    fracs = [0.3, 0.2, 0.15]
+    rows, n_items = data["mushroom"]
+    batches = np.array_split(rows, 4)
+    snap_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    eng = MiningEngine(device=dev, snapshot_dir=snap_dir)
+    seen: dict[tuple[str, int], dict] = {}  # (database, wid) -> last launch reading
+    hellos: dict[tuple[str, int], float] = {}
+    dbs = []
+
+    def read(dm):
+        """Every live worker's stats reply; keeps its launch counters."""
+        ws = dm.worker_stats()
+        for wid, st in ws.items():
+            seen[dm.name, wid] = st["launches"]
+            hellos[dm.name, wid] = dm._workers[wid].hello_s
+        return ws
+
+    def moved(dm, key):
+        return sum(v[key] for (name, _), v in seen.items() if name == dm.name)
+
+    def open_db(name, n, sp, engine=eng, **kw):
+        t0 = time.perf_counter()
+        dm = engine.distribute(name, n_items=n, workers=2, spec=sp, **kw)
+        dbs.append(dm)
+        devs = sorted((w.wid, w.device) for w in dm._live())
+        want = [(w, f"cuda:{w % torch.cuda.device_count()}" if counting else dev) for w, _ in devs]
+        if devs != want:
+            raise AssertionError(f"{name}: workers bound {devs}, not {want}")
+        log(f"dist {name}: 2 workers spawned in {time.perf_counter() - t0:.2f}s, "
+            + ", ".join(f"worker {w.wid} on {w.device} pid {w.pid} spawn-to-hello {w.hello_s:.2f}s"
+                        for w in sorted(dm._live(), key=lambda w: w.wid)) + f" [{smi}]")
+        return dm
+
+    def timed(fn):
+        if counting:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    # the bytes of every reply frame the coordinator reads
+    recv_exact = protocol._recv_exact
+    wire = [0]
+
+    def counted(sock, n):
+        wire[0] += n
+        return recv_exact(sock, n)
+
+    def smi_used() -> str:
+        """Device-wide used memory (nvidia-smi)."""
+        if not counting:
+            return "not measured"
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+    # 10d's reference answer, mined here before the launch counts start
+    plus = np.concatenate([rows, batches[0]])
+    want_plus = MiningEngine(device=dev).submit(plus, n_items, spec.with_(min_sup=0.15)).itemsets
+    protocol._recv_exact = counted
+    used_before = smi_used()
+    K.reset_launches()
+    try:
+        # 10a. mushroom as 4 appends, placed over both workers; the sweep
+        dm = open_db("mushroom", n_items, spec)
+        walls = []
+        for i, b in enumerate(batches):
+            st, wall = timed(lambda b=b: dm.append(b))
+            if st["prep_source"] != "built" or st["worker"] not in (0, 1):
+                raise AssertionError(f"distributed append {i}: {st}")
+            walls.append(wall)
+        placed = {m.worker for m in dm._segments.values()}
+        ws = read(dm)
+        for wid, st in ws.items():
+            built = st["stats"]["seg_prepares"]
+            if counting and (st["launches"]["cooccur"] != built or st["launches"]["histogram"]):
+                raise AssertionError(f"worker {wid} built {built} segments, launches {st['launches']}")
+        if placed != {0, 1}:
+            raise AssertionError(f"placement used workers {placed}, not both")
+        w0 = dm._miner.stage_counters.get("waves", 0)
+        b1_0 = sum(st["launches"]["nlist_intersect"] for st in ws.values())
+        sweep = []
+        for f in fracs:
+            res, wall = timed(lambda f=f: dm.mine(spec.with_(min_sup=f)))
+            want = host_answer(data, host, "mushroom", res.min_count)
+            if (res.itemsets != want or res.itemsets != stream4["answers"][f]
+                    or (f == 0.15 and res.itemsets != oneshot["mushroom"])):
+                raise AssertionError(f"distributed mushroom at {f}: {len(res.itemsets)} itemsets vs "
+                                     f"host {len(want)}, 8a {len(stream4['answers'][f])}")
+            sweep.append((f, len(res.itemsets), round(wall * 1e3, 2)))
+        q_s = [timed(lambda: dm.mine(spec.with_(min_sup=0.15)))[1] for _ in range(3)]
+        waves = dm._miner.stage_counters["waves"] - w0
+        ws = read(dm)
+        b1 = sum(st["launches"]["nlist_intersect"] for st in ws.values()) - b1_0
+        b2 = sum(st["launches"]["nlist_intersect_es"] for st in ws.values())
+        if counting and (b1 != waves * len(dm._segments) or b2):
+            raise AssertionError(f"{waves} waves over {len(dm._segments)} segments: B1 {b1}, B2 {b2}")
+        smi_apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout if counting else ""
+        used = dict(line.split(", ", 1) for line in smi_apps.strip().splitlines() if ", " in line)
+        mem = {w.wid: used.get(str(w.pid), "not measured (pid not listed by nvidia-smi)")
+               for w in dm._live()}
+        mem["both workers (device memory.used after the sweep minus before the spawn)"] = (
+            f"{used_before} -> {smi_used()}")
+        # dispatch to reply consumed: with pipelined waves it also holds the
+        # coordinator's planning of the next wave. p50 as the histogram's
+        # estimate and its factor-2 bucket
+        tel = eng.telemetry.snapshot()["histograms"]
+        rpc = {k.split(".")[2]: (round(v["p50_s"] * 1e3, 3), [
+            round(x * 1e3, 3) for x in eng.telemetry.histogram(k).quantile_bounds(0.5)])
+            for k, v in tel.items() if k.startswith("dist.mushroom.worker")}
+        log(f"dist mushroom/4 over 2 workers: append walls {[round(w * 1e3, 2) for w in walls]}ms, "
+            f"segments on workers {sorted((m.seg_id, m.worker) for m in dm._segments.values())}; "
+            f"sweep (min_sup, itemsets, ms) {sweep} == host mine_prepost == phase 8a's 4-batch "
+            f"stream == phase 4's one-shot (0.15); query@0.15 {[round(t * 1e3, 2) for t in q_s]}ms "
+            f"against phase 8a's single-process 4-segment query "
+            f"{[round(t * 1e3, 2) for t in stream4['query_s']]}ms; {waves} waves x "
+            f"{len(dm._segments)} segments = B1 {b1} launches in the workers, B2 {b2}; wave_rpc_s "
+            f"p50 per worker (estimate, [bucket]) {rpc}ms; device memory per worker (nvidia-smi) {mem} [{smi}]")
+
+        # 10b. pumsb at its full width: the C block of each append rides the
+        # wire. No snapshot store, as in phase 8b: the appends spill nothing
+        prows, pn = data["pumsb"]
+        pspec = spec.with_(max_f1=8192)
+        pdm = open_db("pumsb", pn, pspec, engine=MiningEngine(device=dev))
+        pwalls, pbytes, rpc_s = [], [], []
+        prep_on = pdm._prep_on
+
+        def timed_prep(w, m):  # the prep RPC: the worker's build and the reply
+            t0 = time.perf_counter()
+            out = prep_on(w, m)
+            rpc_s.append(time.perf_counter() - t0)
+            return out
+
+        pdm._prep_on = timed_prep
+        for b in np.array_split(prows, 4):
+            wire[0] = 0
+            st, wall = timed(lambda b=b: pdm.append(b))
+            pwalls.append(wall)
+            pbytes.append(wire[0])
+        pres, pwall = timed(lambda: pdm.mine(pspec.with_(min_sup=0.15)))
+        want = host_answer(data, host, "pumsb", pres.min_count)
+        if pres.itemsets != want:
+            raise AssertionError(f"distributed pumsb: {len(pres.itemsets)} itemsets vs host {len(want)}")
+        ws = read(pdm)
+        if counting and any(st["launches"]["cooccur"] != st["stats"]["seg_prepares"]
+                            for st in ws.values()):
+            raise AssertionError(f"pumsb workers: {ws}")
+        log(f"dist pumsb/4 (max_f1=8192): segments K_s "
+            f"{[len(m.local_items) for m in pdm._segments.values()]}, reply bytes per append "
+            f"(the C block, K_s^2 int32, over loopback) {pbytes}, append walls "
+            f"{[round(w * 1e3, 1) for w in pwalls]}ms, of which the prep RPC (the worker's build, "
+            f"the reply pickled and read) {[round(t * 1e3, 1) for t in rpc_s]}ms and the "
+            f"coordinator's fold of C the rest; query@0.15 {pwall * 1e3:.1f}ms, "
+            f"{len(pres.itemsets)} itemsets == host mine_prepost [{smi}]")
+        pdm.close()
+
+        # 10c. failures: kill the lower worker; the sweep is unchanged and
+        # every re-placed segment is a snapshot restore
+        victim = min(w.wid for w in dm._live())
+        read(dm)
+        dm.kill_worker(victim)
+        for f, n, _ in sweep:
+            res, wall = timed(lambda f=f: dm.mine(spec.with_(min_sup=f)))
+            if res.itemsets != stream4["answers"][f]:
+                raise AssertionError(f"after the kill at {f}: {len(res.itemsets)} itemsets vs {n}")
+        st = dm.stats
+        if st["reassign_rebuilds"] or not st["reassign_snapshot_restores"] or st["workers_lost"] != 1:
+            raise AssertionError(f"failover: {st}")
+        read(dm)
+        log(f"dist kill worker {victim}: sweep bit-identical on 1 live worker, failovers "
+            f"{st['failovers']}, reassigned {st['reassigned_segments']}, snapshot restores "
+            f"{st['reassign_snapshot_restores']}, rebuilds {st['reassign_rebuilds']}; "
+            f"query@0.15 after it {wall * 1e3:.2f}ms [{smi}]")
+        dm.close()
+
+        # a second database with a restart budget: a death armed one wave
+        # into a query is replayed, and the worker respawned
+        rdm = open_db("respawn", n_items, spec, restart_budget=1)
+        for b in batches:
+            if rdm.append(b)["prep_source"] != "snapshot":
+                raise AssertionError("the second database rebuilt a segment the store holds")
+        victim = min(m.worker for m in rdm._segments.values())
+        read(rdm)
+        rdm.inject_fault(victim, "wave", after=1)
+        res, wall = timed(lambda: rdm.mine(spec.with_(min_sup=0.15)))
+        st = rdm.stats
+        if (res.itemsets != stream4["answers"][0.15] or st["respawns"] != 1
+                or st["query_retries"] != 1 or st["reassign_rebuilds"] or len(rdm._live()) != 2):
+            raise AssertionError(f"fault replay / respawn: {len(res.itemsets)} itemsets, stats {st}")
+        fresh = max(w.wid for w in rdm._live())
+        ws = read(rdm)
+        if counting and ws[fresh]["launches"]["cooccur"]:
+            raise AssertionError(f"the respawned worker rebuilt a segment: {ws[fresh]}")
+        log(f"dist fault armed on worker {victim} one wave into a query: replayed bit-identically "
+            f"({wall * 1e3:.1f}ms with the failover), query_retries {st['query_retries']}, respawned "
+            f"worker {fresh} on {rdm._workers[fresh].device} (spawn-to-hello "
+            f"{rdm._workers[fresh].hello_s:.2f}s) holding segments "
+            f"{ws[fresh]['segments']} restored from snapshots, rebuilds {st['reassign_rebuilds']} "
+            f"[{smi}]")
+
+        # 10d. the service: stream Futures against the distributed database
+        with MiningService(engine=eng) as svc:
+            q = spec.with_(min_sup=0.15)
+            before = svc.submit_stream(q, stream="respawn")
+            app = svc.append(batches[0], stream="respawn")
+            after = svc.submit_stream(q, stream="respawn")
+            r0, a, r1 = before.result(600), app.result(600), after.result(600)
+            snap = svc.stats()
+            if (r0.itemsets != stream4["answers"][0.15] or r1.n_rows != len(plus)
+                    or r1.itemsets != want_plus or a["total_rows"] != len(plus)
+                    or snap["counters"]["respawns"] != rdm.stats["respawns"]
+                    or rdm.stats["respawns"] != 1):
+                raise AssertionError(f"service: {r0.n_rows}/{r1.n_rows} rows, counters "
+                                     f"{snap['counters']}")
+        read(rdm)
+        log(f"dist service: submit_stream, append, submit_stream Futures in arrival order; "
+            f"{r1.n_rows} rows after the append, {len(r1.itemsets)} itemsets == a one-shot mine; "
+            f"stats()['counters']['respawns'] {snap['counters']['respawns']} == the coordinator's")
+        rdm.close()
+    finally:
+        protocol._recv_exact = recv_exact
+        for d in dbs:
+            d.close()
+        import shutil
+
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    left = [p for p in multiprocessing.active_children() if p.name.startswith("mine-worker")]
+    if left:
+        raise AssertionError(f"worker processes outlived their databases: {left}")
+    mine = K.launches()
+    if any(mine.values()):
+        raise AssertionError(f"the coordinator launched kernels: {mine}")
+    total = {k: sum(v[k] for v in seen.values()) for k in mine}
+    log(f"dist spawn-to-hello per worker {json.dumps({f'{n}/{w}': round(t, 2) for (n, w), t in hellos.items()})}s; "
+        f"workers' launches {json.dumps(total)} [{smi}]")
+    if counting and not (total["nlist_intersect"] and total["cooccur"]):
+        raise AssertionError(f"a kernel of the distributed path was not launched in phase 10: {total}")
     return total
 
 
@@ -1564,7 +1848,7 @@ def main() -> int:
     log(f"service: launches {json.dumps(service_launches)}")
 
     # ------------------------------------- 8. streaming and continuous mining
-    stream_launches, stream_entries = stream_phase(K, data, host, smi)
+    stream_launches, stream_entries, stream4 = stream_phase(K, data, host, smi)
     log(f"stream: launches {json.dumps(stream_launches)}")
     for kname, e in stream_entries.items():
         entries[kname]["at_stream_pumsb_segment"] = e
@@ -1574,10 +1858,16 @@ def main() -> int:
     mesh_launches = mesh_phase(K, data, host, smi, oneshot_itemsets)
     log(f"mesh: launches {json.dumps(mesh_launches)}; phase 9 took {time.perf_counter() - t0:.1f}s")
 
+    # ------------------------- 10. JobTracker and TaskTrackers as processes
+    t0 = time.perf_counter()
+    dist_launches = distributed_phase(K, data, host, smi, stream4, oneshot_itemsets)
+    log(f"distributed: workers' launches {json.dumps(dist_launches)}; phase 10 took "
+        f"{time.perf_counter() - t0:.1f}s")
+
     kernels = []
     for kname, e in entries.items():
         n = (total[kname] + engine_launches[kname] + service_launches[kname]
-             + stream_launches[kname] + mesh_launches[kname])
+             + stream_launches[kname] + mesh_launches[kname] + dist_launches[kname])
         kernels.append(dict(name=kname, route="cuda", launches=n, kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

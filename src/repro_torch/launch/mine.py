@@ -58,6 +58,18 @@ from its snapshot:
 
     PYTHONPATH=src python -m repro_torch.launch.mine --dataset mushroom --scale 0.05 \\
         --append 4 --window 2 --watch --min-sup 0.3 --device cpu
+
+``--workers W`` with ``--append`` is the distributed path: W spawned worker
+processes (each bound to a device of its own: ``cuda:{wid % cards}``, or
+``--device``) behind a coordinator that places each batch on one worker and
+broadcasts every planned wave. ``--kill-worker`` hard-kills the lowest live
+worker after the sweep and fails unless the re-mined sweep is bit-identical
+(and, with ``--snapshot-dir``, recovered without rebuilding a segment);
+``--respawn N`` budgets N worker restarts; ``--stats`` dumps the
+coordinator's counters and the latency histograms:
+
+    PYTHONPATH=src python -m repro_torch.launch.mine --append 4 --workers 2 --kill-worker \\
+        --respawn 1 --snapshot-dir /tmp/snaps --dataset mushroom --sweep 0.3,0.2 --device cpu
 """
 from __future__ import annotations
 
@@ -238,6 +250,95 @@ def _serve(args, rows, n_items: int, name: str, spec: MineSpec):
     return results
 
 
+def _append_distributed(args, rows, n_items: int, name: str, spec: MineSpec):
+    """Distributed path: spawn ``--workers`` worker processes behind the
+    coordinator, stream the dataset in as ``--append`` batches (each
+    placed on one worker), serve the sweep with waves broadcast over RPC.
+    With ``--kill-worker`` the lowest live worker is hard-killed after the
+    first sweep; the re-mined sweep must answer bit-identically, and with
+    a snapshot dir the re-assigned segments must restore without any
+    rebuild."""
+    import numpy as np
+
+    engine = MiningEngine(**_placement(args), snapshot_dir=args.snapshot_dir)
+    dm = engine.distribute(
+        n_items=n_items, workers=args.workers, spec=spec,
+        restart_budget=args.respawn,
+    )
+    try:
+        print("  workers: " + ", ".join(
+            f"{w.wid} on {w.device} (pid {w.pid}, hello after {w.hello_s:.2f}s)"
+            for w in dm._live()))
+        batches = np.array_split(rows, args.append)
+        for i, batch in enumerate(batches):
+            st = dm.append(batch)
+            print(
+                f"  append[{i}]: +{st['rows']} rows -> worker {st['worker']}, "
+                f"{st['segments']} segment(s), prep={st['prep_source']}, "
+                f"{st['append_s'] * 1e3:.1f}ms"
+            )
+        fracs = [float(s) for s in args.sweep.split(",")] if args.sweep else [args.min_sup]
+        results = []
+        for frac in fracs:
+            res = engine.submit_stream(spec.with_(min_sup=frac))
+            results.append(res)
+            print(f"  min_sup={frac:g} -> {res.summary()} "
+                  f"[{res.service_stats['stream_segments']} segments, "
+                  f"{res.service_stats['workers']} workers]")
+        print(
+            f"{name}: {len(rows)} tx streamed as {args.append} batches "
+            f"over {args.workers} workers"
+        )
+        if args.kill_worker:
+            victim = min(w.wid for w in dm._live())
+            print(f"  killing worker {victim} (hard, mid-topology) ...")
+            dm.kill_worker(victim)
+            for frac, before in zip(fracs, results):
+                after = dm.mine(spec.with_(min_sup=frac))
+                if after.itemsets != before.itemsets:
+                    raise SystemExit(
+                        f"post-kill sweep diverged at min_sup={frac:g}: "
+                        f"{len(after.itemsets)} vs {len(before.itemsets)} itemsets"
+                    )
+            st = dm.stats
+            print(
+                f"  recovered: failovers={st['failovers']} "
+                f"reassigned={st['reassigned_segments']} "
+                f"snapshot_restores={st['reassign_snapshot_restores']} "
+                f"rebuilds={st['reassign_rebuilds']} "
+                f"respawns={st['respawns']} live={len(dm._live())}"
+            )
+            if args.respawn and st["respawns"] == 0:
+                raise SystemExit(
+                    f"--respawn {args.respawn} given but no worker was respawned"
+                )
+            if args.snapshot_dir and st["reassign_rebuilds"] != 0:
+                raise SystemExit(
+                    f"expected snapshot-only recovery but "
+                    f"{st['reassign_rebuilds']} segment(s) were rebuilt"
+                )
+            print(
+                "recovery verified: bit-identical sweep after worker death"
+                + (", segments restored from snapshots only" if args.snapshot_dir else "")
+            )
+        if args.tune or args.expect_plans:
+            _report_plans(engine, args.expect_plans)
+        if args.stats:
+            # the coordinator's counters plus the engine registry's
+            # distribution view (per-worker wave RPC latencies included)
+            tel = engine.telemetry.snapshot()
+            snap = dict(dm.stats)
+            snap["histograms"] = tel["histograms"]
+            snap["telemetry"] = {
+                "schema": tel["schema"], "counters": tel["counters"],
+                "gauges": tel["gauges"],
+            }
+            print(json.dumps(snap, indent=2, sort_keys=True, default=str))
+        return results
+    finally:
+        dm.close()
+
+
 def _append(args, rows, n_items: int, name: str, spec: MineSpec):
     """Streaming path: split the dataset into ``--append`` batches, ingest
     them through the engine's stream, serve the sweep from the live
@@ -389,10 +490,28 @@ def main(argv=None):
              "replays from empty to the final live answer",
     )
     ap.add_argument(
+        "--workers", type=int, default=0, metavar="W",
+        help="with --append: distributed path — spawn W worker processes "
+             "(coordinator/worker over RPC, each on a device of its own) and "
+             "place segments on them",
+    )
+    ap.add_argument(
+        "--respawn", type=int, default=0, metavar="N",
+        help="with --workers: restart budget — dead workers are replaced by "
+             "freshly spawned ones (segments migrate back snapshot-first) up "
+             "to N times before the pool is allowed to shrink",
+    )
+    ap.add_argument(
+        "--kill-worker", action="store_true",
+        help="with --workers: after the first sweep, hard-kill one worker, "
+             "re-mine, and fail unless the answers are bit-identical (and, "
+             "with --snapshot-dir, recovered without rebuilding a segment)",
+    )
+    ap.add_argument(
         "--stats", action="store_true",
-        help="with --serve: after serving, dump the full operator stats "
-             "snapshot as JSON (admission/shed/deadline counters and "
-             "per-layer drill-down)",
+        help="after serving, dump the full operator stats snapshot as JSON "
+             "(admission/shed/deadline/retry/respawn counters and per-layer "
+             "drill-down; with --workers, the coordinator's stats dict)",
     )
     ap.add_argument(
         "--stats-interval", type=float, default=0.0, metavar="S",
@@ -452,12 +571,25 @@ def main(argv=None):
         ap.error("--expect-plans needs --tune")
     if args.append and args.serve:
         ap.error("--append and --serve are separate paths; pick one")
+    if args.workers and not args.append:
+        ap.error("--workers needs --append N (the distributed ingest path)")
     if (args.window or args.watch) and not args.append:
         ap.error("--window/--watch need --append N (the streaming path)")
+    if (args.window or args.watch) and args.workers:
+        ap.error("--window/--watch drive the single-process stream; the "
+                 "distributed window rides the coordinator's stream_spec")
+    if args.kill_worker and args.workers < 2:
+        ap.error("--kill-worker needs --workers >= 2 (someone must survive)")
+    if args.respawn and not args.workers:
+        ap.error("--respawn needs --workers (it budgets worker restarts)")
     if args.expect_warm and not (args.serve or args.append):
         ap.error("--expect-warm checks a warm start; use it with --serve or --append")
-    if args.stats and not args.serve:
-        ap.error("--stats dumps the service snapshot; use it with --serve")
+    if args.expect_warm and args.workers:
+        ap.error("--expect-warm checks the single-process stream; with --workers, "
+                 "--kill-worker checks the snapshot-only recovery")
+    if args.stats and not (args.serve or args.workers):
+        ap.error("--stats dumps the service/coordinator snapshot; "
+                 "use it with --serve or --workers")
     if (args.stats_interval or args.trace) and not args.serve:
         ap.error("--stats-interval/--trace ride the resident service; "
                  "use them with --serve")
@@ -481,6 +613,8 @@ def main(argv=None):
     if args.serve:
         return _serve(args, rows, n_items, name, spec)
     if args.append:
+        if args.workers:
+            return _append_distributed(args, rows, n_items, name, spec)
         return _append(args, rows, n_items, name, spec)
     engine = MiningEngine(**_placement(args), snapshot_dir=args.snapshot_dir)
     if args.sweep:

@@ -1,8 +1,8 @@
 """Standing queries: registered once, answered after every mutation.
 
-``StandingRegistry`` rides inside a ``StreamingMiner`` (duck-typed
-``owner``: ``mine(spec, _seed=)``, ``stats`` dict, ``stream_spec``,
-``rows_appended`` monotone counter).
+``StandingRegistry`` rides inside a ``StreamingMiner`` or
+``DistributedMiner`` (duck-typed ``owner``: ``mine(spec, _seed=)``,
+``stats`` dict, ``stream_spec``, ``rows_appended`` monotone counter).
 After every append/expiry the owner calls ``refresh_all`` — under its
 operation lock, so diffs observe exactly the arrival-order stream state —
 and each registered query is re-mined incrementally and handed a

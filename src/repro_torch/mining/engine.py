@@ -51,8 +51,11 @@ stream. ``register_standing`` attaches a continuous query
 The engine is thread-safe (one coarse lock over planning state), so the
 serving layer (``repro_torch.mining.service``) overlaps one group's
 prepare, on a prep thread and its own CUDA stream, with another group's
-waves. The reference's ``distribute`` (worker processes behind a
-coordinator) is not ported yet.
+waves. ``distribute`` opens a distributed database instead: spawned
+worker processes (``repro_torch.mining.distributed``), each bound to a
+device of its own, behind a coordinator that registers under the same
+stream names, so ``append`` / ``submit_stream`` / ``register_standing``
+serve it unchanged.
 """
 from __future__ import annotations
 
@@ -547,6 +550,41 @@ class MiningEngine:
                 )
             return s
 
+    def distribute(self, name: str = "default", *, n_items: int | None = None,
+                   workers: int = 2, spec: MineSpec | None = None,
+                   stream_spec=None, snapshot_dir: str | None = None,
+                   heartbeat_s: float = 0.0, **kw):
+        """The named ``DistributedMiner`` (coordinator + ``workers`` spawned
+        worker processes), created on first touch. It registers under the
+        same namespace as ``stream``, so ``engine.append`` /
+        ``engine.submit_stream`` — and therefore the ``MiningService``
+        submit path — serve distributed databases unchanged. Workers share
+        the engine's snapshot directory by default (the failover warm
+        path); pass ``snapshot_dir`` to point them elsewhere. On a CUDA
+        engine worker ``wid`` binds ``cuda:{wid % torch.cuda.device_count()}``,
+        else the engine's device."""
+        from repro_torch.mining.distributed import DistributedMiner
+
+        with self._lock:
+            s = self._streams.get(name)
+            if s is None:
+                if n_items is None:
+                    raise ValueError(
+                        f"distributed db {name!r} does not exist yet; "
+                        "pass n_items to create it"
+                    )
+                s = DistributedMiner(
+                    self, n_items, workers=workers, spec=spec,
+                    stream_spec=stream_spec, snapshot_dir=snapshot_dir,
+                    heartbeat_s=heartbeat_s, name=name, **kw
+                )
+                self._streams[name] = s
+            elif n_items is not None and n_items != s.n_items:
+                raise ValueError(
+                    f"stream {name!r} was created with n_items={s.n_items}, got {n_items}"
+                )
+            return s
+
     def append(self, rows, n_items: int | None = None, *, stream: str = "default",
                spec: MineSpec | None = None, stream_spec=None) -> dict:
         """Ingest one transaction batch into the named stream (the map
@@ -570,7 +608,8 @@ class MiningEngine:
         """Register a standing query on the named stream: mined once now,
         then re-answered with a ``MineDiff`` after every append/expiry.
         Returns the ``StandingQuery`` handle (``latest``, ``diffs``,
-        ``next_diff() -> Future``)."""
+        ``next_diff() -> Future``). Works on streaming and distributed
+        databases alike."""
         with self._lock:
             s = self._streams.get(stream)
             if s is None:
@@ -587,7 +626,8 @@ class MiningEngine:
 
     def stream_stats(self) -> dict:
         """Per-stream telemetry snapshot: ``{name: stats_dict}`` for every
-        live streaming database (operator surface)."""
+        live streaming/distributed database (operator surface — the
+        distributed dicts carry rpc_retries / respawns / failovers)."""
         with self._lock:
             streams = dict(self._streams)
         out = {}

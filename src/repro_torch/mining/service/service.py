@@ -46,7 +46,9 @@ Streaming traffic (``repro_torch.mining.stream``) rides the same queue:
 arrival order relative to everything in their batch, so a query submitted
 after an append is guaranteed to see the new segment. On CUDA they run on
 the worker thread's current stream, between the scheduler's mining
-chunks. The reference's ``distribute`` is not ported yet.
+chunks. ``distribute`` opens a distributed database on the engine; its
+``append`` / ``submit_stream`` then ride the same lane, worker failover
+included.
 """
 from __future__ import annotations
 
@@ -278,6 +280,13 @@ class MiningService:
         return self._submit_stream_op(
             lambda: self.engine.cancel_standing(query, stream=stream)
         )
+
+    def distribute(self, name: str = "default", **kw):
+        """Create/fetch a distributed database (``engine.distribute``) —
+        synchronous, since it spawns worker processes, not a mining op.
+        Once created, ``append`` / ``submit_stream`` on its name serve it
+        through the ordinary Future path, worker failover included."""
+        return self.engine.distribute(name, **kw)
 
     # ------------------------------------------------------------ accounting
     @staticmethod

@@ -5,6 +5,8 @@ This module imports nothing of JAX, so it runs on the GPU machine:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -604,3 +606,97 @@ def test_mesh_across_cards(cuda):
     eng.stream().close()
     for d in mesh.distinct_devices():
         torch.cuda.synchronize(d)
+
+
+def _distributed(device, snap, n_workers=2, **kw):
+    from repro_torch.mining import MineSpec, MiningEngine
+
+    spec = MineSpec(algorithm="hprepost", min_sup=0.15)
+    dm = MiningEngine(device=device, snapshot_dir=str(snap)).distribute(
+        n_items=_stream_batches()[1], workers=n_workers, spec=spec, **kw)
+    return dm, spec
+
+
+def _launches_by_worker(dm):
+    return {wid: st["launches"] for wid, st in dm.worker_stats().items()}
+
+
+def test_distributed_workers_on_card_match_cpu_workers(cuda, tmp_path):
+    """A 2-worker database on the card (both workers on ``cuda:0`` or spread
+    over the cards) answers and spills segment payloads exactly as a
+    CPU-worker database on the same appends; each worker launched B4 once
+    per segment it built, B1 once per wave per segment it holds, and no B2
+    or B3."""
+    from repro_torch.mining.service.store import SnapshotStore
+
+    batches, n_items = _stream_batches()
+    gpu, spec = _distributed("cuda", tmp_path / "gpu")
+    cpu, _ = _distributed("cpu", tmp_path / "cpu")
+    try:
+        assert [w.device for w in sorted(gpu._live(), key=lambda w: w.wid)] == [
+            f"cuda:{w % torch.cuda.device_count()}" for w in range(2)]
+        for b in batches:
+            assert gpu.append(b)["worker"] == cpu.append(b)["worker"]
+        for m in gpu._segments.values():
+            c = cpu._segments[m.seg_id]
+            assert (m.worker, m.nbytes, m.prep_bytes, m.digest) == (
+                c.worker, c.nbytes, c.prep_bytes, c.digest)
+            assert np.array_equal(m.C_block, c.C_block)
+        gs, cs = SnapshotStore(str(tmp_path / "gpu")), SnapshotStore(str(tmp_path / "cpu"))
+        keys = sorted(os.path.basename(p) for p in gs.entries())
+        assert keys == sorted(os.path.basename(p) for p in cs.entries()) and len(keys) == 4
+        for k in keys:
+            got, ref = gs.get(k), cs.get(k)
+            for f, v in got.items():
+                assert (v.tobytes() == ref[f].tobytes()) if isinstance(v, np.ndarray) else v == ref[f], f
+        waves0 = gpu._miner.stage_counters.get("waves", 0)
+        for frac in (0.3, 0.15):
+            assert gpu.mine(spec.with_(min_sup=frac)).itemsets == cpu.mine(
+                spec.with_(min_sup=frac)).itemsets
+        waves = gpu._miner.stage_counters["waves"] - waves0
+        held = {w: len(st["segments"]) for w, st in gpu.worker_stats().items()}
+        for wid, got in _launches_by_worker(gpu).items():
+            assert got == {"nlist_intersect": waves * held[wid], "nlist_intersect_es": 0,
+                           "histogram": 0, "cooccur": held[wid]}, (wid, got)
+    finally:
+        gpu.close()
+        cpu.close()
+
+
+def test_distributed_worker_kill_on_card_restores_from_snapshots(cuda, tmp_path):
+    batches, _ = _stream_batches()
+    dm, spec = _distributed("cuda", tmp_path, restart_budget=1)
+    try:
+        for b in batches:
+            dm.append(b)
+        before = dm.mine(spec).itemsets
+        pre = dm.worker_stats()
+        dm.kill_worker(min(w.wid for w in dm._live()))
+        assert dm.mine(spec).itemsets == before
+        assert dm.stats["reassign_rebuilds"] == 0 and dm.stats["respawns"] == 1
+        # restores and migrations build nothing: no worker prepared a segment
+        # since the kill, and B4 ran once per segment a worker built
+        for wid, st in dm.worker_stats().items():
+            built = st["stats"]["seg_prepares"]
+            assert built == (pre[wid]["stats"]["seg_prepares"] if wid in pre else 0)
+            assert st["launches"]["cooccur"] == built and st["launches"]["histogram"] == 0
+    finally:
+        dm.close()
+
+
+def test_distributed_workers_on_distinct_cards(cuda, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two CUDA devices for workers on distinct cards")
+    batches, _ = _stream_batches()
+    dm, spec = _distributed("cuda", tmp_path)
+    cpu, _ = _distributed("cpu", tmp_path / "cpu")
+    try:
+        assert {w.device for w in dm._live()} == {"cuda:0", "cuda:1"}
+        for b in batches:
+            dm.append(b)
+            cpu.append(b)
+        assert dm.mine(spec).itemsets == cpu.mine(spec).itemsets
+        assert all(st["cooccur"] > 0 for st in _launches_by_worker(dm).values())
+    finally:
+        dm.close()
+        cpu.close()

@@ -103,6 +103,25 @@ Phases, in order; any failure raises and exits non-zero:
      p50 and device memory. The workers' launch counters are read through
      ``worker_stats()`` before a worker is killed or closed; every worker
      is closed and none outlives the phase.
+ 11. the LM scaffold's serving path (``repro_torch.serving.Engine``; no
+     kernel of this repo runs there, so no counter moves): 11a every arch
+     of ``configs.ARCH_IDS`` at full width in its config dtype (bfloat16
+     compute over float32 parameters from a seeded ``torch.Generator``),
+     whole, except internlm2_20b, internvl2_26b and phi3_5_moe, cut to 2
+     layers (their float32 parameters pass 40 GB): ``Engine(batch_size=4,
+     max_seq=128)`` serves ``launch.serve``'s request set twice (every
+     token in ``[0, padded_vocab)``, the same tokens both times), then the
+     decode step against a full prefill at the family's fewest layers, in
+     float32 (the reference's ``allclose(2e-3)``) and bfloat16 (within
+     0.25 of the largest |logit|; see ``lm_consistency``), each arch
+     printing its peak memory and freed before the next; 11b tinyllama,
+     granite_moe, zamba2 and seamless at full width and fewest layers in
+     float32, one set of weights on the card and on the CPU (TF32 off):
+     prefill and 4 decode steps within 1e-3 of the logits' scale, the same
+     greedy tokens; 11c tinyllama's full config: prefill of the batch,
+     decode ms a step (median after warm-up), tokens/s, peak memory and the
+     decode step's bound (parameter bytes + KV-cache bytes over 3.35 TB/s),
+     and 8 decode steps under torch.profiler. The phase stays within 120 s.
 Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9
 and 10), and last the device line.
 
@@ -111,6 +130,7 @@ either it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import io
 import json
@@ -1551,6 +1571,273 @@ def distributed_phase(K, data, host, smi: str, stream4: dict, oneshot: dict,
     return total
 
 
+# ------------------------------------------------------ phase 11: LM serving
+# fp32 parameters over 40 GB whole: served at full width with 2 layers
+LM_CUT = ("internlm2_20b", "internvl2_26b", "phi3_5_moe")
+# decode against a full prefill, at each family's fewest layers (see
+# lm_consistency): float32 at the reference's own rtol = atol; bfloat16 as a
+# share of the largest |logit|
+LM_TOL_FP32 = 2e-3
+LM_TOL_BF16 = 0.25
+LM_TOL_CARD_CPU = 1e-3  # card against CPU, float32: a share of max(1, max|logit|)
+LM_BUDGET_S = 120.0
+
+
+def lm_requests(cfg, n: int = 4, max_new: int = 16):
+    """``launch.serve``'s request set: n prompts of 4-23 tokens."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rng.integers(1, cfg.vocab_size, size=rng.integers(4, 24)).astype(np.int32),
+                    max_new=max_new) for _ in range(n)]
+
+
+def lm_fewest_layers(cfg):
+    """The fewest layers the family's stacking allows (one xLSTM or Zamba2
+    group, else one layer and for encdec one encoder layer)."""
+    n = {"ssm": cfg.slstm_every, "hybrid": cfg.attn_every}.get(cfg.family, 1)
+    return dataclasses.replace(cfg, n_layers=n, encoder_layers=min(cfg.encoder_layers, 1))
+
+
+def lm_sub_model(cfg, state: dict, dev, **changes):
+    """The model of ``cfg`` with ``changes`` (fewer layers, another compute
+    dtype) over the leading layers of ``state``, sharing its tensors."""
+    from repro_torch.models.registry import build_model, load_model
+
+    cut = dataclasses.replace(cfg, **changes)
+    return cut, load_model(cut, {k: state[k] for k in build_model(cut).state_dict()}, dev)
+
+
+def lm_consistency(cfg, model, dev) -> str:
+    """The reference's ``test_decode_consistency_with_full_forward``: logits
+    of a prefill of S tokens against a prefill of S-1 then one decode step
+    (batch 2, S = 24 after the VLM's patches), float32 within the
+    reference's ``allclose(rtol=atol=2e-3)``, bfloat16 within LM_TOL_BF16 of
+    the largest |logit|. Raises past the tolerance; -> "dtype max|diff|/max|logit|".
+    MoE archs with ``capacity_factor = E / k``: no pair dropped, since a
+    dropped pair changes its token's output by design."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import cache_specs_for, materialize_batch
+
+    if cfg.n_experts:
+        model.cfg = cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    S = 24 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    batch = materialize_batch(cfg, "train_4k", S, 2, device=dev)
+    tokens = batch["tokens"]
+    n = tokens.shape[1] - 1
+    specs = cache_specs_for(cfg, "decode_32k", seq=S + 8, batch=2)
+    with torch.inference_mode():
+        full, _ = model.prefill({**batch, "tokens": tokens[:, :n]}, init_params(specs, device=dev))
+        _, cache = model.prefill({**batch, "tokens": tokens[:, :n - 1]}, init_params(specs, device=dev))
+        step, _ = model.decode({"token": tokens[:, n - 1:n], "pos": S - 1}, cache)
+    full, step = full[:, 0].float(), step[:, 0].float()
+    err, scale = float((step - full).abs().max()), float(full.abs().max())
+    if cfg.dtype == "bfloat16":
+        ok = err <= LM_TOL_BF16 * scale
+    else:
+        ok = bool(torch.isclose(step, full, rtol=LM_TOL_FP32, atol=LM_TOL_FP32).all())
+    if not (ok and math.isfinite(err)):
+        raise AssertionError(f"{cfg.name} {cfg.dtype} at {cfg.n_layers} layers: decode against full "
+                             f"prefill, max abs error {err} (max|logit| {scale})")
+    return f"{cfg.dtype} {err:.4f}/{scale:.2f}"
+
+
+def lm_card_vs_cpu(arch: str, dev) -> str:
+    """11b: the fewest-layer full-width model in float32 with one set of
+    weights (drawn on the CPU, copied to the card): prefill and 4 decode
+    steps of the serve request set, logits within LM_TOL_CARD_CPU and the
+    greedy tokens equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.registry import build_model, cache_specs_for, load_model
+
+    cfg = dataclasses.replace(lm_fewest_layers(get_config(arch)), dtype="float32")
+    state = params_from_reference(cfg, init_params(build_model(cfg).param_specs(),
+                                                   torch.Generator().manual_seed(0)))
+    reqs = lm_requests(cfg)
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((4, plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    runs = {}
+    for where in ("cpu", dev):
+        model = load_model(cfg, state, where)
+        batch = {"tokens": torch.from_numpy(toks).to(where)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((4, max(plen // 4, 1), cfg.d_model), device=where)
+        cache = init_params(cache_specs_for(cfg, "decode_32k", seq=128, batch=4), device=where)
+        out = []
+        with torch.inference_mode():
+            logits, cache = model.prefill(batch, cache)
+            for step in range(5):
+                nxt = logits[:, -1].argmax(-1).to(torch.int32)
+                out.append((logits[:, -1].float().cpu(), nxt.cpu()))
+                if step < 4:
+                    logits, cache = model.decode({"token": nxt[:, None], "pos": plen + step}, cache)
+        runs[where] = out
+        del model, cache
+    errs = []
+    for i, ((lc, tc), (lg, tg)) in enumerate(zip(runs["cpu"], runs[dev])):
+        err, scale = float((lg - lc).abs().max()), max(1.0, float(lc.abs().max()))
+        errs.append(err / scale)
+        if err > LM_TOL_CARD_CPU * scale or not torch.equal(tc, tg):
+            raise AssertionError(f"{arch} card against CPU, step {i}: max abs error {err} (scale {scale}), "
+                                 f"tokens {tg.tolist()} vs {tc.tolist()}")
+    return (f"{arch} ({cfg.n_layers} layers{', 1 encoder layer' if cfg.encoder_layers else ''}): "
+            f"prefill + 4 decode steps, max error / scale {max(errs):.2e}, tokens equal")
+
+
+def lm_phase(smi: str, dev="cuda", reduced: bool = False) -> dict:
+    """Phase 11: the LM scaffold's serving path (see the module docstring).
+    ``reduced=True, dev="cpu"`` rehearses it on the CPU with the reduced
+    configs. -> tinyllama's numbers (11c)."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.models.common import init_params, n_params
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import Engine
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and (torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("float32 matmuls would round through TF32")
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def build(arch):
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        elif arch in LM_CUT:
+            cfg = dataclasses.replace(cfg, n_layers=2)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = params_from_reference(cfg, init_params(build_model(cfg).param_specs(), gen))
+        return cfg, state
+
+    # 11a: every arch in its config dtype through the Engine
+    for arch in ARCH_IDS:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, state = build(arch)
+        eng = Engine(cfg, state, batch_size=4, max_seq=128, device=dev)
+        sync()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        done = eng.generate(lm_requests(cfg))
+        sync()
+        wall = time.perf_counter() - t0
+        outs = [r.out for r in done]
+        if not all(len(o) == 16 and all(0 <= t < cfg.padded_vocab for t in o) for o in outs):
+            raise AssertionError(f"{arch}: tokens {outs}")
+        if [r.out for r in eng.generate(lm_requests(cfg))] != outs:
+            raise AssertionError(f"{arch}: a second generate gave other tokens")
+        peak = torch.cuda.max_memory_allocated() / MB if on_card else float("nan")
+        del eng
+        few = lm_fewest_layers(cfg) if not reduced else cfg
+        checks = []
+        for dtype in sorted({cfg.dtype, "float32"}):
+            sub, model = lm_sub_model(cfg, state, dev, n_layers=few.n_layers,
+                                      encoder_layers=few.encoder_layers, dtype=dtype)
+            checks.append(lm_consistency(sub, model, dev))
+            del model
+        cut = f"; cut to {cfg.n_layers} layers at full width" if arch in LM_CUT and not reduced else ""
+        log(f"lm {arch} ({cfg.family}, {n_params(build_model(cfg).param_specs()) / 1e9:.3f}B params, "
+            f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}{cut}): init {t_init:.2f}s, "
+            f"generate 4x16 {wall:.2f}s, peak {peak:.1f} MiB; tokens in [0, {cfg.padded_vocab}), "
+            f"repeatable; decode vs full prefill at {few.n_layers} layers (max|diff|/max|logit|): "
+            f"{', '.join(checks)}; req0 {outs[0][:8]}")
+        del state
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # 11b: card against CPU in float32
+    if not reduced:
+        for arch in ("tinyllama_1_1b", "granite_moe", "zamba2_2_7b", "seamless_m4t_v2"):
+            log(f"lm card vs cpu: {lm_card_vs_cpu(arch, dev)}")
+            gc.collect()
+
+    # 11c: tinyllama at its full config, bfloat16
+    cfg, state = build("tinyllama_1_1b")
+    eng = Engine(cfg, state, batch_size=4, max_seq=128, device=dev)
+    eng.generate(lm_requests(cfg))  # warm-up
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.generate(lm_requests(cfg))
+    sync()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / MB if on_card else float("nan")
+    reqs = lm_requests(cfg)
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((4, plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    pre_ms, dec_ms = [], []
+    with torch.inference_mode():
+        for _ in range(5):
+            cache = eng._fresh_cache()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = eng.model.prefill(batch, cache)
+            sync()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        for pos in range(plen, plen + 16):
+            t0 = time.perf_counter()
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)
+            logits, cache = eng.model.decode({"token": nxt[:, None], "pos": pos}, cache)
+            nxt.cpu()
+            sync()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+        busy = "not measured"
+        if on_card:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for pos in range(plen + 16, plen + 24):
+                    logits, cache = eng.model.decode({"token": nxt[:, None], "pos": pos}, cache)
+                    logits[:, -1].argmax(-1).cpu()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            tl = device_timeline(prof)
+            ops = {}
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA and not ev.name.startswith("Activity Buffer"):
+                    ms, k = ops.get(ev.name, (0.0, 0))
+                    ops[ev.name] = (ms + (ev.time_range.end - ev.time_range.start) / 1e3, k + 1)
+            top = "; ".join(f"{k[:60]} x{c / 8:g} {ms / 8:.3f}ms"
+                            for k, (ms, c) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:5])
+            busy = (f"under the profiler: device busy {tl['busy_ms'] / 8:.3f} ms a step of "
+                    f"{wall_ms / 8:.3f}, idle share {1 - tl['busy_ms'] / wall_ms:.3f}, "
+                    f"{tl['device_events'] / 8:g} device ops a step; top a step: {top}"
+                    if tl["device_events"] else "device time not measured (the profiler recorded none)")
+    n = n_params(build_model(cfg).param_specs())
+    kv_bytes = sum(t.numel() * t.element_size() for t in (cache["kv"]["k"], cache["kv"]["v"], cache["kv"]["pos"]))
+    bound_ms = (n * 4 + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    med = float(np.median(dec_ms[2:]))
+    nums = dict(arch="tinyllama_1_1b", batch=4, max_seq=128, prompt_len=plen, prefill_ms=float(np.median(pre_ms)),
+                decode_ms_per_step=med, decode_tokens_per_s=4 * 1e3 / med,
+                generate_tokens_per_s=4 * 16 / gen_s, peak_mib=peak, param_bytes=n * 4, kv_bytes=kv_bytes,
+                decode_bound_ms=bound_ms)
+    log(f"lm tinyllama_1_1b ({cfg.dtype} compute, float32 parameters): {json.dumps(nums)}; "
+        f"decode steps ms {[round(t, 3) for t in dec_ms]}; {busy} [{smi}]")
+    del eng, state, cache, logits
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    log(f"lm: phase 11 took {took:.1f}s")
+    if on_card and took > LM_BUDGET_S:
+        raise AssertionError(f"phase 11 took {took:.1f}s, over its {LM_BUDGET_S:.0f}s budget")
+    return nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1863,6 +2150,9 @@ def main() -> int:
     dist_launches = distributed_phase(K, data, host, smi, stream4, oneshot_itemsets)
     log(f"distributed: workers' launches {json.dumps(dist_launches)}; phase 10 took "
         f"{time.perf_counter() - t0:.1f}s")
+
+    # ------------------------------------------ 11. the LM scaffold's serving
+    lm_phase(smi)
 
     kernels = []
     for kname, e in entries.items():

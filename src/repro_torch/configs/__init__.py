@@ -1,0 +1,3 @@
+from repro_torch.configs.base import ModelConfig, get_config, list_archs
+
+__all__ = ["ModelConfig", "get_config", "list_archs"]

@@ -700,3 +700,62 @@ def test_distributed_workers_on_distinct_cards(cuda, tmp_path):
     finally:
         dm.close()
         cpu.close()
+
+
+def _lm_state(cfg, device):
+    from repro_torch.models.common import init_params
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    return params_from_reference(cfg, init_params(build_model(cfg).param_specs(), gen))
+
+
+def _lm_requests(cfg):
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rng.integers(1, cfg.vocab_size, size=rng.integers(4, 24)).astype(np.int32), max_new=16)
+            for _ in range(4)]
+
+
+def test_lm_serving_on_card(cuda):
+    """One full-width TinyLlama wave through the Engine on the card
+    (bfloat16, all 22 layers), repeatable; then the one-layer full-width
+    model in float32 with the same weights on the card and on the CPU:
+    prefill and 4 decode steps within 1e-3 of the logits' scale (float32
+    rounding in other GEMM orders; TF32 off), the same greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import Engine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("tinyllama_1_1b")
+    eng = Engine(cfg, _lm_state(cfg, cuda), batch_size=4, max_seq=128)
+    assert eng.device.type == "cuda"
+    outs = [r.out for r in eng.generate(_lm_requests(cfg))]
+    assert all(len(o) == 16 and all(0 <= t < cfg.padded_vocab for t in o) for o in outs)
+    assert [r.out for r in eng.generate(_lm_requests(cfg))] == outs
+    del eng
+
+    one = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    state = _lm_state(one, torch.device("cpu"))
+    card = Engine(one, state, batch_size=4, max_seq=128, device="cuda")
+    host = Engine(one, state, batch_size=4, max_seq=128, device="cpu")
+    reqs = _lm_requests(one)
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((4, plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    with torch.inference_mode():
+        (lc, cc), (lg, cg) = (e.model.prefill({"tokens": torch.from_numpy(toks).to(e.device)}, e._fresh_cache())
+                              for e in (host, card))
+        for step in range(5):
+            scale = max(1.0, float(lc.abs().max()))
+            assert float((lg.cpu() - lc).abs().max()) <= 1e-3 * scale, step
+            tc, tg = lc[:, -1].argmax(-1), lg[:, -1].argmax(-1)
+            assert torch.equal(tc, tg.cpu()), step
+            if step < 4:
+                lc, cc = host.model.decode({"token": tc[:, None], "pos": plen + step}, cc)
+                lg, cg = card.model.decode({"token": tg[:, None], "pos": plen + step}, cg)

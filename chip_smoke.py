@@ -122,6 +122,25 @@ Phases, in order; any failure raises and exits non-zero:
      decode ms a step (median after warm-up), tokens/s, peak memory and the
      decode step's bound (parameter bytes + KV-cache bytes over 3.35 TB/s),
      and 8 decode steps under torch.profiler. The phase stays within 120 s.
+ 12. the LM scaffold's training path (``repro_torch.training``; no kernel
+     of this repo runs there: every counter is 0 after it): 12a
+     tinyllama_1_1b's full config (float32 parameters and moments,
+     bfloat16 compute), ``make_train_state`` on the card and the Trainer's
+     ``make_train_step``, batch 8 × seq 128 from ``corpus.batches``, 2
+     warm-up and 6 timed steps (median step ms, tokens/s, peak memory,
+     finite losses, parameters moved), 3 steps with the deterministic
+     context off (its cost), 2 steps split into loss-and-gradients and
+     AdamW, one step under torch.profiler (device ops, busy ms, idle share
+     against the unprofiled median step, device time by op) and the step's
+     bound; no checkpoint (13.2 GB a save); 12b ``launch.train.main`` on the reduced config, 24 steps
+     with a checkpoint every 8 and a failure injected at step 13, against an
+     uninterrupted run: the final checkpoints' parameters equal bit for bit;
+     12c every arch at full width and ``lm_fewest_layers``, one set of
+     float32 weights drawn on the CPU: the loss and every gradient leaf of
+     one batch (2 × 24 tokens) on the card and on the CPU within
+     LM_TRAIN_TOL of the scale, then one ``make_train_step`` in the
+     config's dtype on the card (finite loss and grad norm). The phase
+     stays within 180 s.
 Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9
 and 10), and last the device line.
 
@@ -130,11 +149,13 @@ either it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1838,10 +1859,286 @@ def lm_phase(smi: str, dev="cuda", reduced: bool = False) -> dict:
     return nums
 
 
+# ----------------------------------------------------- phase 12: LM training
+# card against CPU, float32: a share of max(1, max|CPU leaf|). Each side's
+# gradients carry their own float32 rounding, so the two may differ by about
+# twice either's distance from a float64 evaluation. The xLSTM's recurrences
+# amplify it most: its CPU gradients at lm_fewest_layers lie 4.7e-4 of the
+# scale from float64 (tests/test_torch_train_grads.py::
+# test_float32_gradients_near_float64 holds them within 1.5e-3), so it gets
+# 3e-3; every other family 1e-3
+LM_TRAIN_TOL = {"ssm": 3e-3}
+LM_TRAIN_TOL_DEFAULT = 1e-3
+LM_TRAIN_BUDGET_S = 180.0
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (NVIDIA data sheet)
+
+
+def train_bound(cfg, batch: int, seq: int) -> dict:
+    """The least time a train step of ``cfg`` could take on the card: the
+    larger of its FLOPs at the bfloat16 peak (6 × the parameters that
+    multiply × tokens, plus the attention's score and value products,
+    forward and backward) and its bytes at the HBM rate (the step's inputs
+    and outputs are p, m and v in float32: each read once and written
+    once)."""
+    from repro_torch.models.common import n_params
+    from repro_torch.models.registry import build_model
+
+    n = n_params(build_model(cfg).param_specs())
+    dense = n - cfg.padded_vocab * cfg.d_model  # the token embedding is a gather
+    tokens = batch * seq
+    attn = 3 * 4 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim * cfg.n_layers
+    flops = 6 * dense * tokens + attn
+    nbytes = 24 * n
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(params=n, flops=flops, bytes=nbytes, flops_ms=t_ops, bytes_ms=t_bytes,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def lm_train_grads(cfg, state: dict, dev) -> tuple:
+    """Loss and gradients (name -> tensor) of one 2 × 24-token batch, the
+    model holding ``state`` on ``dev``."""
+    from repro_torch.models.registry import load_model, materialize_batch
+    from repro_torch.training.step import deterministic
+
+    model = load_model(cfg, state, dev)
+    leaves = dict(model.named_parameters())
+    S = 24 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    with deterministic():
+        loss = model.loss(materialize_batch(cfg, "train_4k", S, 2, device=dev))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def lm_train_card_vs_cpu(arch: str, dev, reduced: bool = False) -> str:
+    """12c for one arch (see the module docstring); ``reduced=True``
+    rehearses it on the reduced config. -> a log fragment."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.registry import build_model, materialize_batch
+    from repro_torch.training.step import TrainConfig, make_train_state, make_train_step
+
+    full = get_config(arch).reduced() if reduced else lm_fewest_layers(get_config(arch))
+    on_card = torch.device(dev).type == "cuda"
+    cfg = dataclasses.replace(full, dtype="float32")
+    t0 = time.perf_counter()
+    state = params_from_reference(cfg, init_params(build_model(cfg).param_specs(), torch.Generator().manual_seed(0)))
+    n = sum(t.numel() for t in state.values())
+    lc, gc_ = lm_train_grads(cfg, state, "cpu")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg, gg = lm_train_grads(cfg, state, dev)
+    if on_card:
+        torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    worst, where = 0.0, ""
+    tol = LM_TRAIN_TOL.get(cfg.family, LM_TRAIN_TOL_DEFAULT)
+    scale = max(1.0, abs(float(lc)))
+    if not (math.isfinite(float(lg)) and abs(float(lg) - float(lc)) <= tol * scale):
+        raise AssertionError(f"{arch}: loss on the card {float(lg)} against {float(lc)} on the CPU")
+    for k in list(gc_):
+        g = gc_.pop(k).to(dev)  # compared on the card: the host's passes over 9 GB cost seconds
+        scale = max(1.0, float(g.abs().max()))
+        err = float((gg[k] - g).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"{arch}: gradient {k} on the card against the CPU: max abs error {err} "
+                                 f"(scale {scale})")
+        if err / scale > worst:
+            worst, where = err / scale, k
+    del gg, gc_, state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # one train step in the config's own dtype on the card
+    model = build_model(full)
+    tstate = make_train_state(model, torch.Generator(device=dev).manual_seed(0), TrainConfig())
+    S = 24 + (full.frontend_tokens if full.family == "vlm" else 0)
+    tstate, m = make_train_step(model, TrainConfig())(tstate, materialize_batch(full, "train_4k", S, 2, device=dev))
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        raise AssertionError(f"{arch}: {full.dtype} train step loss {loss}, grad norm {gn}")
+    peak = torch.cuda.max_memory_allocated() / MB if on_card else float("nan")
+    del tstate, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return (f"{arch} ({cfg.n_layers} layers{', 1 encoder layer' if cfg.encoder_layers else ''}, "
+            f"{n / 1e9:.3f}B params): float32 loss {float(lc):.5f} card {float(lg):.5f}, every gradient leaf "
+            f"within {worst:.2e} of its scale (worst {where}; tolerance {tol:g}); cpu {t_cpu:.1f}s, "
+            f"card {t_card:.1f}s; "
+            f"{full.dtype} step loss {loss:.4f} grad norm {gn:.4f}, peak {peak:.1f} MiB")
+
+
+def lm_train_phase(smi: str, K, dev="cuda", reduced: bool = False) -> dict:
+    """Phase 12: the LM scaffold's training path (see the module docstring).
+    ``reduced=True, dev="cpu"`` rehearses it on the CPU with the reduced
+    configs (the profiler's device numbers are then absent). -> 12a's
+    numbers."""
+    import repro_torch.training.step as step_mod
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.data import corpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optim import OptConfig, adamw_update
+    from repro_torch.training.step import TrainConfig, make_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    K.reset_launches()
+
+    # 12a: tinyllama's full config, timed
+    cfg = get_config("tinyllama_1_1b").reduced() if reduced else get_config("tinyllama_1_1b")
+    model = build_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=100))
+    t0 = time.perf_counter()
+    state = make_train_state(model, torch.Generator(device=dev).manual_seed(42), tc)
+    sync()
+    t_init = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size() for part in (state["params"], state["opt"]["m"], state["opt"]["v"])
+                      for t in part.values())
+    probe = state["params"]["layers.0.attn.wq"][0, 0, :8].clone()
+    step = make_train_step(model, tc)
+    toks = corpus.token_stream(2_000_000, cfg.vocab_size, seed=0)
+    batches = corpus.batches(toks, 8, 128, seed=0)
+
+    def run(n):
+        nonlocal state
+        ms, losses = [], []
+        for _ in range(n):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # the Trainer's sync a step
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, losses
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    warm_ms, warm_losses = run(2)
+    step_ms, losses = run(6)
+    peak = torch.cuda.max_memory_allocated() / MB if on_card else float("nan")
+    if not all(math.isfinite(x) for x in warm_losses + losses):
+        raise AssertionError(f"12a: losses {warm_losses + losses}")
+    if torch.equal(state["params"]["layers.0.attn.wq"][0, 0, :8], probe) or int(state["opt"]["step"]) != 8:
+        raise AssertionError("12a: the parameters did not move in 8 steps")
+    with contextlib.ExitStack() as stack:  # the deterministic context's cost
+        real = step_mod.deterministic
+        step_mod.deterministic = contextlib.nullcontext
+        stack.callback(setattr, step_mod, "deterministic", real)
+        nodet_ms, _ = run(3)
+    # the step's two halves on the host clock: loss and gradients, then AdamW
+    split = {"loss_grads_ms": [], "adamw_ms": []}
+    for _ in range(2):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
+        leaves = dict(model.named_parameters())  # the step has bound state["params"]
+        sync()
+        t0 = time.perf_counter()
+        with step_mod.deterministic():
+            loss = model.loss(batch)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        sync()
+        t1 = time.perf_counter()
+        _, state["opt"], _ = adamw_update(tc.opt, state["params"], grads, state["opt"])
+        sync()
+        split["loss_grads_ms"].append((t1 - t0) * 1e3)
+        split["adamw_ms"].append((time.perf_counter() - t1) * 1e3)
+        del grads, loss
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tl = device_timeline(prof) if on_card else {"device_events": 0}
+    med = float(np.median(step_ms))
+    prof_txt = "device time not measured (the profiler recorded none)"
+    if tl["device_events"]:
+        rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count) for e in prof.key_averages()]
+        top = "; ".join(f"{k} {t:.2f}ms x{c}" for k, t, c in sorted(rows, key=lambda r: -r[1])[:8] if t > 0)
+        prof_txt = (f"device busy {tl['busy_ms']:.2f} ms, {tl['device_events']} device ops; idle share "
+                    f"{1 - tl['busy_ms'] / wall_ms:.3f} of the profiled step ({wall_ms:.2f} ms), "
+                    f"{1 - tl['busy_ms'] / med:.3f} of the unprofiled median; device time by op: {top}")
+    bnd = train_bound(cfg, 8, 128)  # the bound of the config run here
+    nums = dict(arch="tinyllama_1_1b", batch=8, seq=128, tokens_per_step=1024, init_s=t_init,
+                step_ms=med, tokens_per_s=1024 * 1e3 / med, peak_mib=peak, state_bytes=state_bytes,
+                nondeterministic_step_ms=float(np.median(nodet_ms)),
+                loss_grads_ms=float(np.median(split["loss_grads_ms"])), adamw_ms=float(np.median(split["adamw_ms"])),
+                device_busy_ms=tl["busy_ms"] if tl["device_events"] else None,
+                idle_share=1 - tl["busy_ms"] / med if tl["device_events"] else None,
+                device_ops=tl["device_events"], **bnd)
+    log(f"lm train tinyllama_1_1b ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} compute, float32 "
+        f"parameters and moments; no checkpoint: "
+        f"{state_bytes / 1e9:.1f} GB a save): {json.dumps(nums)}; warm-up ms {[round(t, 2) for t in warm_ms]}, "
+        f"steps ms {[round(t, 2) for t in step_ms]}, without deterministic algorithms "
+        f"{[round(t, 2) for t in nodet_ms]}; loss and gradients / AdamW ms {split}; "
+        f"losses {[round(x, 4) for x in warm_losses + losses]}; "
+        f"one step under torch.profiler: {prof_txt} [{smi}]")
+    del state, step, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 12b: the entry point, a failure and a restart, against an uninterrupted run
+    t0 = time.perf_counter()
+    finals = []
+    with tempfile.TemporaryDirectory() as d:
+        for name, extra in (("fail", ["--inject-failure-at", "13"]), ("whole", [])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                hist = launch_train.main(["--arch", "tinyllama_1_1b", "--reduced", "--steps", "24", "--ckpt-every",
+                                          "8", "--ckpt-dir", str(Path(d) / name), "--device", dev] + extra)
+            cm = CheckpointManager(str(Path(d) / name))
+            if cm.list_steps() != [7, 15, 23]:
+                raise AssertionError(f"12b {name}: checkpoints {cm.list_steps()}")
+            finals.append((cm.restore(23)[0], hist, out.getvalue().splitlines()[0]))
+    (a, hist_a, line_a), (b, _, line_b) = finals
+    diff = [k for k in b["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    if diff or not torch.equal(a["opt"]["step"], b["opt"]["step"]):
+        raise AssertionError(f"12b: the restarted run's parameters differ from the uninterrupted run's: {diff[:5]}")
+    if [h["step"] for h in hist_a] != list(range(13)) + list(range(8, 24)):
+        raise AssertionError(f"12b: steps run {[h['step'] for h in hist_a]}")
+    log(f"lm train 12b (launch.train --reduced, 24 steps, checkpoints at 7/15/23): failure at step 13, restart "
+        f"from step 7's checkpoint; final parameters equal the uninterrupted run's bit for bit "
+        f"({len(b['params'])} leaves); '{line_a}' / '{line_b}'; {time.perf_counter() - t0:.1f}s")
+
+    # 12c: every arch, card against CPU
+    t0 = time.perf_counter()
+    failed = []
+    for arch in ARCH_IDS:  # every arch is checked before a failure is raised
+        try:
+            log(f"lm train card vs cpu: {lm_train_card_vs_cpu(arch, dev, reduced)}")
+        except AssertionError as e:
+            log(f"lm train card vs cpu: FAILED {e}")
+            failed.append(str(e))
+    log(f"lm train 12c: {time.perf_counter() - t0:.1f}s")
+    if failed:
+        raise AssertionError(f"12c: {len(failed)} arch(s) failed: {'; '.join(failed)}")
+
+    got = K.launches()
+    if any(got.values()):
+        raise AssertionError(f"phase 12 launched a kernel of this repo: {got}")
+    took = time.perf_counter() - t_phase
+    log(f"lm train: phase 12 took {took:.1f}s; kernel launches {json.dumps(got)} (the path has none)")
+    if on_card and took > LM_TRAIN_BUDGET_S:
+        raise AssertionError(f"phase 12 took {took:.1f}s, over its {LM_TRAIN_BUDGET_S:.0f}s budget")
+    return nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # phase 12 trains under deterministic algorithms: cuBLAS reads its
+    # workspace setting when the process first uses it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     import repro_torch.kernels as K
@@ -2153,6 +2450,9 @@ def main() -> int:
 
     # ------------------------------------------ 11. the LM scaffold's serving
     lm_phase(smi)
+
+    # ------------------------------------------ 12. the LM scaffold's training
+    lm_train_phase(smi, K)
 
     kernels = []
     for kname, e in entries.items():

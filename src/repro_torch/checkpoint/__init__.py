@@ -1,3 +1,3 @@
 """repro_torch.checkpoint — atomic directory snapshots (:mod:`.atomic`):
-tmp + fsync + rename and retention GC, shared by the mining snapshot store.
-The reference's training ``CheckpointManager`` comes with the LM scaffold."""
+tmp + fsync + rename and retention GC, shared by the mining snapshot store
+and the training ``CheckpointManager`` (:mod:`.ckpt`)."""

@@ -10,7 +10,9 @@ same layout in both packages, so they convert leaf for leaf.
 
 Trees go in as numpy arrays or tensors: a tensor leaf is sliced (views, no
 copies), a numpy leaf copied. Trees come out as numpy arrays, bfloat16
-widened to float32 (numpy has no bfloat16).
+widened to float32 (numpy has no bfloat16). Train states
+(``training/step.py``) convert leaf for leaf too, their moments and
+residuals laid out as the parameters.
 """
 from __future__ import annotations
 
@@ -89,3 +91,38 @@ def cache_to_reference(tree) -> dict:
     if isinstance(tree, dict):
         return {k: cache_to_reference(v) for k, v in tree.items()}
     return _numpy(tree)
+
+
+def train_state_from_reference(cfg, tree) -> dict:
+    """The reference's train state (``{"params", "opt": {"m", "v", "step"},
+    "rng"}`` and ``"residuals"`` under compression) as the port's. The
+    ``rng`` leaf is per package: the reference's PRNG key has no torch
+    counterpart, so the port's state gets a CPU ``torch.Generator`` seeded 0
+    (as a fresh ``make_train_state`` on the CPU); it drives only the int8
+    compression's noise."""
+    out = {
+        "params": params_from_reference(cfg, tree["params"]),
+        "opt": {"m": params_from_reference(cfg, tree["opt"]["m"]),
+                "v": params_from_reference(cfg, tree["opt"]["v"]),
+                "step": _tensor(tree["opt"]["step"])},
+        "rng": torch.Generator().manual_seed(0).get_state(),
+    }
+    if "residuals" in tree:
+        out["residuals"] = params_from_reference(cfg, tree["residuals"])
+    return out
+
+
+def train_state_to_reference(cfg, state: dict) -> dict:
+    """The port's train state as the reference's, numpy leaves. The ``rng``
+    leaf is per package: the reference's state gets ``PRNGKey(0)`` (the
+    uint32 pair (0, 0), as a fresh ``make_train_state`` keeps)."""
+    out = {
+        "params": params_to_reference(cfg, state["params"]),
+        "opt": {"m": params_to_reference(cfg, state["opt"]["m"]),
+                "v": params_to_reference(cfg, state["opt"]["v"]),
+                "step": _numpy(_tensor(state["opt"]["step"]))},
+        "rng": np.zeros(2, np.uint32),
+    }
+    if "residuals" in state:
+        out["residuals"] = params_to_reference(cfg, state["residuals"])
+    return out

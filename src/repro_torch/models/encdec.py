@@ -5,6 +5,8 @@ bidirectional transformer over precomputed frame embeddings. Decoder: causal
 self-attention + cross-attention over the encoder memory. Cross-attention
 K/V are computed once at prefill and cached; as in the reference, the cache
 prefill returns holds them at the memory's length, not at the fresh cache's.
+``loss`` runs each decoder layer under ``remat``, as the reference checkpoints
+each; the encoder stores its activations, as there.
 """
 from __future__ import annotations
 
@@ -110,10 +112,13 @@ class EncDecModel(nn.Module):
         x = x + o
         return x + ll.mlp(lp["mlp"], ll.rmsnorm(x, lp["ln2"], cfg.norm_eps)), (ck, cv)
 
-    def decode_stack(self, x, q_pos, memory=None, cache=None):
+    def decode_stack(self, x, q_pos, memory=None, cache=None, train: bool = False):
         if cache is None:
             for lp in self.decoder:
-                x, _ = self._dec_layer(lp, x, q_pos, memory, None)
+                if train:
+                    x, _ = ll.remat(self._dec_layer, lp, x, q_pos, memory, None)
+                else:
+                    x, _ = self._dec_layer(lp, x, q_pos, memory, None)
             return x, None
         kv = clone_tree(cache["kv"])
         cks, cvs = [], []
@@ -132,7 +137,7 @@ class EncDecModel(nn.Module):
         memory = self.encode(batch["frames"])
         x = ll.embed(self.embed, inputs, ll.compute_dtype(cfg))
         B, S = x.shape[:2]
-        x, _ = self.decode_stack(x, positions(B, S, x.device), memory=memory)
+        x, _ = self.decode_stack(x, positions(B, S, x.device), memory=memory, train=True)
         logits = ll.unembed(self.embed, x, cfg)
         mask = batch.get("loss_mask", torch.ones(targets.shape, dtype=torch.float32, device=x.device))
         return ll.softmax_xent(logits, targets, mask)

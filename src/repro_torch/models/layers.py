@@ -5,13 +5,16 @@ parameters are read through ``p[name]`` (a ``SpecModule`` or a dict), cast
 to the compute dtype at each use, and every softmax runs in float32.
 Prefill attention is the reference's online softmax over KV blocks of
 ``_pick_kv_block`` (the score matrix never materializes), decode one exact
-softmax over the grouped-KV cache. There is no attention kernel: the
-reference has none to port (its attention is ``jnp`` inside ``lax.scan``).
+softmax over the grouped-KV cache. The prefill attention's backward is the
+reference's custom VJP (``_Flash``): it recomputes each block's tiles from
+the saved log-sum-exp. There is no attention kernel: the reference has none
+to port (its attention is ``jnp`` inside ``lax.scan``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.common import ParamSpec
 
@@ -35,6 +38,12 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with the reference's dtype promotion."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    stored (the reference's ``jax.checkpoint``)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------- norms/rope
@@ -118,6 +127,48 @@ def _flash_fwd(q, k, v, q_pos, kv_pos, causal: bool, kv_block: int):
     return out, m + torch.log(l)
 
 
+def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, causal: bool, kv_block: int):
+    """The reference's ``_flash_bwd``: per KV block, recompute the tile's
+    exact softmax from the saved ``lse``; accumulate dq, emit the block's
+    dk and dv. -> (dq, dk, dv) in the inputs' dtypes."""
+    scale = q.shape[-1] ** -0.5
+    qf = q.float()
+    dof = do.float()
+    delta = (dof * out.float()).sum(-1)  # (B,Sq,H)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for s0 in range(0, k.shape[1], kv_block):
+        kb = k[:, s0:s0 + kv_block].float()
+        vb = v[:, s0:s0 + kv_block].float()
+        s = torch.einsum("bqhd,bshd->bqhs", qf, kb) * scale
+        mask = _mask(kv_pos[:, s0:s0 + kv_block], q_pos, causal)
+        s = torch.where(mask[:, :, None, :], s, NEG)
+        p = torch.exp(s - lse[..., None])  # exact softmax via the saved lse
+        dp = torch.einsum("bqhd,bshd->bqhs", dof, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bqhs,bshd->bqhd", ds, kb)
+        dks.append(torch.einsum("bqhs,bqhd->bshd", ds, qf))
+        dvs.append(torch.einsum("bqhs,bqhd->bshd", p, dof))
+    return dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: the forward keeps only its
+    inputs, output and log-sum-exp, never the per-block tiles."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal: bool, kv_block: int):
+        out, lse = _flash_fwd(q, k, v, q_pos, kv_pos, causal, kv_block)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.causal, ctx.kv_block = causal, kv_block
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, ctx.causal, ctx.kv_block)
+        return dq, dk, dv, None, None, None, None
+
+
 def _attn_core(q, k, v, q_pos, kv_pos, causal: bool) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Skv, KV, hd), q_pos (B, Sq), kv_pos (B, Skv)
     with unfilled slots at BIG_POS."""
@@ -133,10 +184,12 @@ def _attn_core(q, k, v, q_pos, kv_pos, causal: bool) -> torch.Tensor:
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bqkgs,bskh->bqkgh", p, v.float())
         return out.reshape(B, 1, H, hd).to(q.dtype)
+    # GQA's repeat stays outside the Function: autograd sums each group's
+    # dk/dv, as jnp.repeat's VJP does
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    return _flash_fwd(q, k, v, q_pos, kv_pos, causal, _pick_kv_block(k.shape[1]))[0]
+    return _Flash.apply(q, k, v, q_pos, kv_pos, causal, _pick_kv_block(k.shape[1]))
 
 
 def attention(p, x, cfg, q_pos, *, kv_x=None, kv_pos=None, cache: dict | None = None,

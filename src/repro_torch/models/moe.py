@@ -47,7 +47,8 @@ def _moe_dense(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     logits = mm(xt, p["router"].to(xt.dtype)).float()  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = top_k(probs, k)  # (T, k)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    # torch.maximum: a tie splits its gradient, as jnp.maximum
+    gate = gate / torch.maximum(gate.sum(-1, keepdim=True), torch.full((), 1e-9, device=dev))
 
     # Switch aux loss: fraction of tokens per expert × mean router prob
     me = probs.mean(0)

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec
-from repro_torch.models.layers import NEG, ein, mm, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import NEG, ein, mm, remat, rmsnorm, rmsnorm_spec
 
 CHUNK = 128  # mLSTM chunk
 MAMBA_CHUNK = 64  # Mamba2 (SSD) chunk
@@ -290,8 +290,11 @@ def slstm_chunk_len(S: int) -> int:
     return S
 
 
-def slstm(p, x: torch.Tensor, cfg, state: dict | None = None, single_step: bool = False):
-    """Scalar-memory LSTM with exponential gating, one step at a time."""
+def slstm(p, x: torch.Tensor, cfg, state: dict | None = None, single_step: bool = False,
+          train: bool = False):
+    """Scalar-memory LSTM with exponential gating, one step at a time. Under
+    ``train`` each chunk of Q steps is recomputed in the backward (the
+    reference's checkpointed chunk body) where there is more than one."""
     B, S, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
@@ -307,6 +310,7 @@ def slstm(p, x: torch.Tensor, cfg, state: dict | None = None, single_step: bool 
     r = p["r"].float()
     b = p["b"].float()
     wx = p["wx"].to(x.dtype)
+    n_floor = torch.full((), 1e-6, device=dev)  # torch.maximum: a tie splits its gradient, as jnp.maximum
 
     def step(carry, xt):
         c, n, m, h = carry
@@ -318,19 +322,28 @@ def slstm(p, x: torch.Tensor, cfg, state: dict | None = None, single_step: bool 
         fp = torch.exp(ft + m - mt)
         ct = fp * c + ip * torch.tanh(zt)
         nt = fp * n + ip
-        ht = torch.sigmoid(ot) * ct / torch.clamp_min(nt, 1e-6)
+        ht = torch.sigmoid(ot) * ct / torch.maximum(nt, n_floor)
         return (ct, nt, mt, ht), ht
+
+    def chunk(carry, xc):  # xc (B, Q, d)
+        hs = []
+        for t in range(xc.shape[1]):
+            carry, ht = step(carry, xc[:, t])
+            hs.append(ht)
+        return carry, torch.stack(hs, dim=1)
 
     # the reference scans S/Q chunks of Q steps (Q = 64 or 32), or all S
     # steps flat; either way the same steps in the same order
     Q = slstm_chunk_len(S)
     hs = []
     for c0 in range(0, S, Q):
-        for t in range(c0, c0 + Q):
-            carry, ht = step(carry, xn[:, t])
-            hs.append(ht)
+        if train and S > Q:
+            carry, hc = remat(chunk, carry, xn[:, c0:c0 + Q])
+        else:
+            carry, hc = chunk(carry, xn[:, c0:c0 + Q])
+        hs.append(hc)
     c1, n1, m1, h1 = carry
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = torch.cat(hs, dim=1).reshape(B, S, d).to(x.dtype)
     h = rmsnorm(h, p["norm_h"], cfg.norm_eps)
     x = x + h
     # small FFN (up factor 2, gelu in its tanh form, as jax.nn.gelu) after the sLSTM

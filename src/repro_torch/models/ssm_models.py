@@ -6,6 +6,8 @@ Zamba2: groups of ``attn_every`` Mamba2 blocks followed by one *shared*
 with its own KV cache per group. The reference's (g, m, ...) and (g, ...)
 stacked leaves are ``groups.<g>.mlstm.<m>`` / ``groups.<g>.slstm`` (and
 ``groups.<g>.mamba.<m>``) here; caches keep the reference's stacked layout.
+``loss`` runs each group under ``remat`` (the reference checkpoints each
+group) and keeps no recurrent state.
 """
 from __future__ import annotations
 
@@ -55,20 +57,31 @@ class XLSTMModel(nn.Module):
     def forward(self, mode: str, *args):
         return getattr(self, mode)(*args)
 
-    def backbone(self, x, cache=None, single_step: bool = False):
+    def _group(self, gp, x, gc: dict, single_step: bool = False, train: bool = False):
+        """One group's mLSTM blocks, then its sLSTM, from the states in
+        ``gc`` (views of the stacked cache), written back unless ``train``."""
+        for j, lp in enumerate(gp["mlstm"]):
+            lc = layer_cache(gc["mlstm"], j)
+            x, st = ssm.mlstm(lp, x, self.cfg, state=lc, single_step=single_step)
+            if not train:
+                _write_state(lc, st)
+        x, st = ssm.slstm(gp["slstm"], x, self.cfg, state=gc["slstm"], single_step=single_step, train=train)
+        if not train:
+            _write_state(gc["slstm"], st)
+        return x
+
+    def backbone(self, x, cache=None, single_step: bool = False, train: bool = False):
         if cache is None:
             # fresh states from the specs (m-stabilizers at -1e30, sLSTM n at 1)
             cache = init_params(self.cache_specs(x.shape[0], 0), device=x.device)
         else:
             cache = clone_tree(cache)
         for g, gp in enumerate(self.groups):
-            for j, lp in enumerate(gp["mlstm"]):
-                lc = layer_cache(cache["mlstm"], g, j)
-                x, st = ssm.mlstm(lp, x, self.cfg, state=lc, single_step=single_step)
-                _write_state(lc, st)
-            lc = layer_cache(cache["slstm"], g)
-            x, st = ssm.slstm(gp["slstm"], x, self.cfg, state=lc, single_step=single_step)
-            _write_state(lc, st)
+            gc = {"mlstm": layer_cache(cache["mlstm"], g), "slstm": layer_cache(cache["slstm"], g)}
+            if train:
+                x = ll.remat(self._group, gp, x, gc, single_step, True)
+            else:
+                x = self._group(gp, x, gc, single_step)
         return x, cache
 
     def loss(self, batch):
@@ -76,7 +89,7 @@ class XLSTMModel(nn.Module):
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         x = ll.embed(self.embed, inputs, ll.compute_dtype(cfg))
-        x, _ = self.backbone(x)
+        x, _ = self.backbone(x, train=True)
         logits = ll.unembed(self.embed, x, cfg)
         mask = batch.get("loss_mask", torch.ones(targets.shape, dtype=torch.float32, device=x.device))
         return ll.softmax_xent(logits, targets, mask)
@@ -132,9 +145,23 @@ class ZambaModel(nn.Module):
     def forward(self, mode: str, *args):
         return getattr(self, mode)(*args)
 
-    def backbone(self, x, q_pos, cache=None, single_step: bool = False):
+    def _group(self, gp, x, q_pos, mamba: dict, kv, single_step: bool = False, train: bool = False):
+        """One group's Mamba2 blocks from the states in ``mamba`` (views of
+        the stacked cache, written back unless ``train``), then the shared
+        (weight-tied) attention block with the group's own KV cache."""
+        cfg, shared = self.cfg, self.shared_attn
+        for j, lp in enumerate(gp["mamba"]):
+            lc = layer_cache(mamba, j)
+            y, st = ssm.mamba2(lp, x, cfg, state=lc, single_step=single_step)
+            x = x + y
+            if not train:
+                _write_state(lc, st)
+        h, _ = ll.attention(shared["attn"], ll.rmsnorm(x, shared["ln"], cfg.norm_eps), cfg, q_pos, cache=kv)
+        x = x + h
+        return x + ll.mlp(shared["mlp"], ll.rmsnorm(x, shared["ln2"], cfg.norm_eps))
+
+    def backbone(self, x, q_pos, cache=None, single_step: bool = False, train: bool = False):
         cfg = self.cfg
-        shared = self.shared_attn
         if cache is None:
             # fresh Mamba2 states, no KV cache (and none returned)
             states = {"mamba": init_params(ssm.mamba2_state_specs(
@@ -143,16 +170,12 @@ class ZambaModel(nn.Module):
         else:
             states = clone_tree(cache)
         for g, gp in enumerate(self.groups):
-            for j, lp in enumerate(gp["mamba"]):
-                lc = layer_cache(states["mamba"], g, j)
-                y, st = ssm.mamba2(lp, x, cfg, state=lc, single_step=single_step)
-                x = x + y
-                _write_state(lc, st)
-            # the shared (weight-tied) attention block, its own KV per group
-            kv = layer_cache(states["kv"], g) if states["kv"] is not None else None
-            h, _ = ll.attention(shared["attn"], ll.rmsnorm(x, shared["ln"], cfg.norm_eps), cfg, q_pos, cache=kv)
-            x = x + h
-            x = x + ll.mlp(shared["mlp"], ll.rmsnorm(x, shared["ln2"], cfg.norm_eps))
+            mamba = layer_cache(states["mamba"], g)
+            if train:
+                x = ll.remat(self._group, gp, x, q_pos, mamba, None, single_step, True)
+            else:
+                kv = layer_cache(states["kv"], g) if states["kv"] is not None else None
+                x = self._group(gp, x, q_pos, mamba, kv, single_step)
         return x, (states if cache is not None else None)
 
     def loss(self, batch):
@@ -161,7 +184,7 @@ class ZambaModel(nn.Module):
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         x = ll.embed(self.embed, inputs, ll.compute_dtype(cfg))
         B, S = x.shape[:2]
-        x, _ = self.backbone(x, positions(B, S, x.device))
+        x, _ = self.backbone(x, positions(B, S, x.device), train=True)
         logits = ll.unembed(self.embed, x, cfg)
         mask = batch.get("loss_mask", torch.ones(targets.shape, dtype=torch.float32, device=x.device))
         return ll.softmax_xent(logits, targets, mask)

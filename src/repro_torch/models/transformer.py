@@ -4,7 +4,10 @@ The JAX package's ``DecoderLM`` as an ``nn.Module``: the reference's stacked
 (L, ...) layer parameters are one ``SpecModule`` a layer in ``layers``, so
 ``layers.3.attn.wq`` is ``params["layers"]["attn"]["wq"][3]``. The VLM
 variant prepends connector-projected patch embeddings (frontend stub).
-Forward only: the training backward comes with the training slice.
+``loss`` runs the backbone with ``train=True``: each layer under
+``torch.utils.checkpoint`` (its activations recomputed in the backward, as
+the reference's per-layer ``jax.checkpoint``); prefill and decode store
+nothing for a backward.
 """
 from __future__ import annotations
 
@@ -95,11 +98,14 @@ class DecoderLM(nn.Module):
             h, aux = ll.mlp(p["mlp"], hn), torch.zeros((), device=x.device)
         return x + h, aux
 
-    def backbone(self, x, q_pos, cache=None):
+    def backbone(self, x, q_pos, cache=None, train: bool = False):
         kv = clone_tree(cache["kv"]) if cache is not None else None
         aux = torch.zeros((), device=x.device)
         for i, lp in enumerate(self.layers):
-            x, a = self._layer(lp, x, q_pos, layer_cache(kv, i) if kv is not None else None)
+            if train:
+                x, a = ll.remat(self._layer, lp, x, q_pos, None)
+            else:
+                x, a = self._layer(lp, x, q_pos, layer_cache(kv, i) if kv is not None else None)
             aux = aux + a
         return x, aux, ({"kv": kv} if kv is not None else None)
 
@@ -121,7 +127,7 @@ class DecoderLM(nn.Module):
         patches = batch.get("patches")
         x = self.embed_inputs(inputs, patches)
         B, S = x.shape[0], x.shape[1]
-        x, aux, _ = self.backbone(x, positions(B, S, x.device))
+        x, aux, _ = self.backbone(x, positions(B, S, x.device), train=True)
         if patches is not None:
             x = x[:, patches.shape[1]:]
         logits = self.logits(x)

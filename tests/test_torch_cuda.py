@@ -759,3 +759,45 @@ def test_lm_serving_on_card(cuda):
             if step < 4:
                 lc, cc = host.model.decode({"token": tc[:, None], "pos": plen + step}, cc)
                 lg, cg = card.model.decode({"token": tg[:, None], "pos": plen + step}, cg)
+
+
+def test_lm_training_on_card(cuda, tmp_path):
+    """The training path on the card: a reduced tinyllama through the
+    ``Trainer``, a failure at step 13 and a restart equal to an
+    uninterrupted run bit for bit (deterministic algorithms), and one step
+    of a fewest-layer full-width model in float32 whose loss and gradients
+    match the CPU's within 1e-3 of the scale."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import corpus
+    from repro_torch.fault.failures import FailureInjector
+    from repro_torch.models.registry import build_model, materialize_batch
+    from repro_torch.training.optim import OptConfig
+    from repro_torch.training.step import TrainConfig, make_train_state
+    from repro_torch.training.trainer import LoopConfig, Trainer
+
+    cfg = get_config("tinyllama_1_1b").reduced()
+    toks = corpus.token_stream(20_000, cfg.vocab_size, seed=0)
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=30))
+    finals = []
+    for name, inj in (("a", FailureInjector(fail_at_steps=(13,))), ("b", None)):
+        tr = Trainer(build_model(cfg), tc, LoopConfig(total_steps=24, ckpt_every=8, ckpt_dir=str(tmp_path / name)),
+                     lambda: corpus.batches(toks, 2, 32, seed=0), failure_injector=inj)
+        assert tr.device.type == "cuda" and tr.train() == 24
+        finals.append(tr.ckpt.restore()[0]["params"])
+    assert all(torch.equal(finals[0][k], finals[1][k]) for k in finals[1])
+
+    one = dataclasses.replace(get_config("tinyllama_1_1b"), n_layers=1, dtype="float32")
+    state = make_train_state(build_model(one), torch.Generator().manual_seed(0), TrainConfig())["params"]
+    out = []
+    for dev in ("cpu", cuda):
+        model = build_model(one)
+        model.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
+        leaves = dict(model.named_parameters())
+        loss = model.loss(materialize_batch(one, "train_4k", 24, 2, device=dev))
+        out.append((loss, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))))
+    (lc, gc), (lg, gg) = out
+    assert abs(float(lg) - float(lc)) <= 1e-3 * max(1.0, abs(float(lc)))
+    for k, g in gc.items():
+        assert float((gg[k].cpu() - g).abs().max()) <= 1e-3 * max(1.0, float(g.abs().max())), k

@@ -138,9 +138,30 @@ Phases, in order; any failure raises and exits non-zero:
      12c every arch at full width and ``lm_fewest_layers``, one set of
      float32 weights drawn on the CPU: the loss and every gradient leaf of
      one batch (2 × 24 tokens) on the card and on the CPU within
-     LM_TRAIN_TOL of the scale, then one ``make_train_step`` in the
-     config's dtype on the card (finite loss and grad norm). The phase
-     stays within 180 s.
+     LM_TRAIN_TOL of the scale (the xLSTM also each side against a
+     float64 evaluation on the card, within LM_TRAIN_F64_TOL, with its five
+     worst leaves, the float64 evaluation on the CPU, the recompute off and
+     its sLSTM or mLSTM blocks alone in float64: ``lm_train_f64_gaps``),
+     then one ``make_train_step`` in the config's dtype on the card (finite
+     loss and grad norm). The phase stays within 180 s.
+ 13. the LM scaffold's training over a mesh (``repro_torch.sharding``,
+     ``make_train_step(..., rules)``; no kernel of this repo runs there):
+     13a tinyllama_1_1b's full config with the launcher's defaults on
+     ``make_mesh_from_spec("8x1", [cuda:0] * 8)``, 3 ZeRO-1 steps against 3
+     one-device steps from the same seed and batches, loss, grad norm, p, m
+     and v equal bit for bit after each (median ms of each, peak memory with
+     both states resident, the moments' split bytes and blocks); then the
+     reduced config trained on 8x1, checkpointed at step 2, restored onto
+     2x1 and onto no mesh and run on, equal to the uninterrupted run bit for
+     bit; 13b ``moe_ffn(..., mesh=)`` (``_moe_sharded``) for granite_moe's
+     full-width MoE in float32, batch (4, 128), on (1, 1), (2, 1), (1, 2)
+     and (2, 2) at capacity factors 1.25 and 4.0, card against CPU within
+     LM_MESH_TOL of the scale (ms of each); 13c ``gpipe_forward`` over
+     tinyllama's 22 decoder blocks in float32, 2 stages, 4 microbatches of
+     2 × 128, against the sequential run within LM_MESH_TOL (ms of both);
+     13d ``compressed_psum`` card against CPU bit for bit, on 4 shards of
+     tinyllama's ``wq`` shape and on shards whose scales differ. The phase
+     stays within 120 s.
 Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9
 and 10), and last the device line.
 
@@ -1860,15 +1881,21 @@ def lm_phase(smi: str, dev="cuda", reduced: bool = False) -> dict:
 
 
 # ----------------------------------------------------- phase 12: LM training
-# card against CPU, float32: a share of max(1, max|CPU leaf|). Each side's
-# gradients carry their own float32 rounding, so the two may differ by about
-# twice either's distance from a float64 evaluation. The xLSTM's recurrences
-# amplify it most: its CPU gradients at lm_fewest_layers lie 4.7e-4 of the
-# scale from float64 (tests/test_torch_train_grads.py::
-# test_float32_gradients_near_float64 holds them within 1.5e-3), so it gets
-# 3e-3; every other family 1e-3
+# card against CPU, float32: a share of max(1, max|CPU leaf|); every family
+# 1e-3, except the xLSTM. Its mLSTM chunks amplify float32 rounding most, and
+# the card's and the CPU's roundings differ: at lm_fewest_layers its float32
+# gradients lie up to 7.25e-4 of the scale from a float64 evaluation of the
+# same weights and batch on the card, the CPU's 4.65e-4, on the same leaf
+# (groups.0.mlstm.1.w_if) and on opposite sides, so the two differ by up to
+# their sum (1.19e-3 measured). Both float64 evaluations agree within 8e-13,
+# and running only the mLSTM blocks in float64 brings the card within 2.3e-5
+# (lm_train_f64_gaps). So the xLSTM is gated on each side's own distance from
+# float64, LM_TRAIN_F64_TOL (1.5e-3, which tests/test_torch_train_grads.py::
+# test_float32_gradients_near_float64 holds the CPU to), and card against CPU
+# within the sum of two such distances, 3e-3
 LM_TRAIN_TOL = {"ssm": 3e-3}
 LM_TRAIN_TOL_DEFAULT = 1e-3
+LM_TRAIN_F64_TOL = {"ssm": 1.5e-3}
 LM_TRAIN_BUDGET_S = 180.0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (NVIDIA data sheet)
 
@@ -1909,6 +1936,116 @@ def lm_train_grads(cfg, state: dict, dev) -> tuple:
     return loss.detach(), dict(zip(leaves, grads))
 
 
+@contextlib.contextmanager
+def float64_widened():
+    """Every float32 step of the LM code in float64 while it is open:
+    ``.float()``, float32 allocations by ``torch.zeros``/``torch.full`` and
+    the xLSTM's fresh cache states widened (the patches of
+    ``tests/test_torch_train_grads.py``'s ``_float64_grads``; the script
+    imports no test file)."""
+    import repro_torch.models.ssm_models as ssm_models
+
+    def widen(fn):
+        def wrapped(*args, **kw):
+            if kw.get("dtype") == torch.float32:
+                kw["dtype"] = torch.float64
+            return fn(*args, **kw)
+        return wrapped
+
+    real = (torch.Tensor.float, torch.zeros, torch.full, ssm_models.init_params)
+    real_init = real[3]
+    torch.Tensor.float = lambda self: self.double()
+    torch.zeros, torch.full = widen(real[1]), widen(real[2])
+    ssm_models.init_params = lambda *a, **kw: {
+        k: {n: t.double() if t.dtype == torch.float32 else t for n, t in v.items()}
+        for k, v in real_init(*a, **kw).items()}
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.zeros, torch.full, ssm_models.init_params = real
+
+
+def lm_float64_grads(cfg, state: dict, dev) -> dict:
+    """``lm_train_grads``'s gradients with every float32 step in float64 on
+    ``dev``: the evaluation float32 rounding is measured against."""
+    from repro_torch.models.registry import build_model, materialize_batch
+
+    S = 24 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    batch = materialize_batch(cfg, "train_4k", S, 2, device=dev)
+    with float64_widened():
+        model = build_model(dataclasses.replace(cfg, dtype="float64"))
+        model.load_state_dict({k: v.to(dev, torch.float64) for k, v in state.items()}, strict=True, assign=True)
+        leaves = dict(model.named_parameters())
+        loss = model.loss({k: v.double() if v.is_floating_point() else v for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
+    return dict(zip(leaves, grads))
+
+
+def leaf_gaps(grads: dict, truth: dict) -> dict:
+    """Each leaf's largest error against ``truth``, as a share of max(1, the
+    truth's largest |value|); compared in float64 on the truth's device."""
+    out = {}
+    for k, t in truth.items():
+        g = grads[k].to(t.device, torch.float64)
+        out[k] = float((g - t.double()).abs().max()) / max(1.0, float(t.abs().max()))
+    return out
+
+
+@contextlib.contextmanager
+def block_widened(name: str):
+    """``repro_torch.models.ssm.<name>`` (``slstm`` or ``mlstm``) run in
+    float64 inside an otherwise float32 model: its parameters, input and
+    recurrent state widened on the way in, its output narrowed on the way
+    out, its backward in float64 too. Only that block's rounding leaves."""
+    from repro_torch.models import ssm
+
+    real = getattr(ssm, name)
+
+    def run(p, x, cfg, state=None, **kw):
+        wide = {k: v.double() for k, v in p.named_parameters()}
+        st = {k: v.double() for k, v in state.items()} if state is not None else None
+        with float64_widened():
+            y, new = real(wide, x.double(), cfg, state=st, **kw)
+        return y.float(), new
+
+    setattr(ssm, name, run)
+    try:
+        yield
+    finally:
+        setattr(ssm, name, real)
+
+
+def lm_train_f64_gaps(cfg, state: dict, g_cpu: dict, g_card: dict, dev) -> dict:
+    """How far the card's and the CPU's float32 gradients lie from a float64
+    evaluation of the same weights and batch (on the card; the CPU's float64
+    evaluation beside it shows whether the two devices compute the same
+    function), the five worst leaves, and what moves the card's distance:
+    the group recompute turned off, and the sLSTM or the mLSTM blocks alone
+    run in float64."""
+    import repro_torch.models.layers as ll
+
+    t64 = lm_float64_grads(cfg, state, dev)
+    card, cpu = leaf_gaps(g_card, t64), leaf_gaps(g_cpu, t64)
+    f64_devices = max(leaf_gaps(lm_float64_grads(cfg, state, "cpu"), t64).values())
+    worst = sorted(card, key=lambda k: -card[k])[:5]
+    real_remat = ll.remat
+    ll.remat = lambda fn, *args: fn(*args)
+    try:
+        _, g_flat = lm_train_grads(cfg, state, dev)
+    finally:
+        ll.remat = real_remat
+    widened = {}
+    for name in ("slstm", "mlstm"):
+        with block_widened(name):
+            _, g = lm_train_grads(cfg, state, dev)
+        gaps = leaf_gaps(g, t64)
+        widened[name] = dict(max=max(gaps.values()), at_worst=gaps[worst[0]])
+    return dict(card=max(card.values()), cpu=max(cpu.values()), float64_card_vs_cpu=f64_devices,
+                worst=[(k, card[k], cpu[k]) for k in worst],
+                recompute_changes_no_bit=all(torch.equal(g_flat[k], g_card[k]) for k in g_card),
+                block_in_float64=widened)
+
+
 def lm_train_card_vs_cpu(arch: str, dev, reduced: bool = False) -> str:
     """12c for one arch (see the module docstring); ``reduced=True``
     rehearses it on the reduced config. -> a log fragment."""
@@ -1931,6 +2068,19 @@ def lm_train_card_vs_cpu(arch: str, dev, reduced: bool = False) -> str:
     if on_card:
         torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
+    f64 = ""
+    if cfg.family in LM_TRAIN_F64_TOL:
+        gaps = lm_train_f64_gaps(cfg, state, gc_, gg, dev)
+        f64 = (f"; float32 against float64 (largest error / scale): card {gaps['card']:.3e}, cpu {gaps['cpu']:.3e} "
+               f"(tolerance {LM_TRAIN_F64_TOL[cfg.family]:g} each); float64 card against cpu "
+               f"{gaps['float64_card_vs_cpu']:.1e}; worst leaves (card, cpu): "
+               + ", ".join(f"{k} {a:.3e} {b:.3e}" for k, a, b in gaps["worst"])
+               + f"; the group recompute off changes no bit: {gaps['recompute_changes_no_bit']}; card with only "
+               + ", ".join(f"the {n} blocks in float64 {v['max']:.3e} (worst leaf {v['at_worst']:.3e})"
+                           for n, v in gaps["block_in_float64"].items()))
+        if not (gaps["card"] <= LM_TRAIN_F64_TOL[cfg.family] and gaps["cpu"] <= LM_TRAIN_F64_TOL[cfg.family]
+                and gaps["recompute_changes_no_bit"]):
+            raise AssertionError(f"{arch}: gradients against float64{f64}")
     worst, where = 0.0, ""
     tol = LM_TRAIN_TOL.get(cfg.family, LM_TRAIN_TOL_DEFAULT)
     scale = max(1.0, abs(float(lc)))
@@ -1966,7 +2116,7 @@ def lm_train_card_vs_cpu(arch: str, dev, reduced: bool = False) -> str:
     return (f"{arch} ({cfg.n_layers} layers{', 1 encoder layer' if cfg.encoder_layers else ''}, "
             f"{n / 1e9:.3f}B params): float32 loss {float(lc):.5f} card {float(lg):.5f}, every gradient leaf "
             f"within {worst:.2e} of its scale (worst {where}; tolerance {tol:g}); cpu {t_cpu:.1f}s, "
-            f"card {t_card:.1f}s; "
+            f"card {t_card:.1f}s{f64}; "
             f"{full.dtype} step loss {loss:.4f} grad norm {gn:.4f}, peak {peak:.1f} MiB")
 
 
@@ -2129,6 +2279,236 @@ def lm_train_phase(smi: str, K, dev="cuda", reduced: bool = False) -> dict:
     log(f"lm train: phase 12 took {took:.1f}s; kernel launches {json.dumps(got)} (the path has none)")
     if on_card and took > LM_TRAIN_BUDGET_S:
         raise AssertionError(f"phase 12 took {took:.1f}s, over its {LM_TRAIN_BUDGET_S:.0f}s budget")
+    return nums
+
+
+# ------------------------------------------- phase 13: LM training over a mesh
+LM_MESH_BUDGET_S = 120.0
+LM_MESH_TOL = 1e-5  # 13b/13c: a share of max(1, max|expected|)
+
+
+def sharded_equal(whole: torch.Tensor, held) -> bool:
+    """``held`` (a ``Sharded`` moment) equal to ``whole`` bit for bit, block
+    by block (no gathered copy)."""
+    return all(torch.equal(whole[s], held.blocks[c]) for c, s in held.sharding.slices(tuple(whole.shape)).items())
+
+
+def lm_mesh_phase(smi: str, K, dev="cuda", reduced: bool = False) -> dict:
+    """Phase 13: the LM scaffold's training over a mesh (see the module
+    docstring). ``reduced=True, dev="cpu"`` rehearses it on the CPU with
+    the reduced configs. -> 13a's numbers."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import corpus
+    from repro_torch.launch.mesh import make_mesh, make_mesh_from_spec
+    from repro_torch.models.common import init_params, stack_specs
+    from repro_torch.models.moe import moe_ffn, moe_specs
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import positions
+    from repro_torch.sharding import MeshRules, Sharded
+    from repro_torch.training.compress import compressed_psum
+    from repro_torch.training.optim import OptConfig
+    from repro_torch.training.pipeline import gpipe_forward
+    from repro_torch.training.step import TrainConfig, make_train_state, make_train_step
+    from repro_torch.training.trainer import LoopConfig, Trainer
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and (torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("float32 matmuls would round through TF32")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mesh(spec):
+        return make_mesh_from_spec(spec, [dev] * math.prod(int(x) for x in spec.split("x")))
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    K.reset_launches()
+
+    # 13a: the ZeRO-1 step on 8x1 against the one-device step, launcher defaults
+    cfg = get_config("tinyllama_1_1b").reduced() if reduced else get_config("tinyllama_1_1b")
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=min(20, 200 // 10 + 1), total_steps=200))
+    rules = MeshRules(mesh("8x1"))
+    models = {"one": build_model(cfg), "mesh": build_model(cfg)}  # a model binds one state's tensors
+    states = {k: make_train_state(m, torch.Generator(device=dev).manual_seed(42), tc) for k, m in models.items()}
+    steps = {"one": make_train_step(models["one"], tc), "mesh": make_train_step(models["mesh"], tc, rules)}
+    batches = corpus.batches(corpus.token_stream(2_000_000, cfg.vocab_size, seed=0), 8, 128, seed=0)
+    ms = {"one": [], "mesh": []}
+    peak = {"one": None, "mesh": None}  # device memory: measured on the card only
+    above = {"one": None, "mesh": None}
+    losses = []
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
+        metrics = {}
+        for name in (("one", "mesh") if i % 2 == 0 else ("mesh", "one")):
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            states[name], metrics[name] = steps[name](states[name], batch)
+            float(metrics[name]["loss"])
+            sync()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if on_card:
+                peak[name] = max(peak[name] or 0.0, torch.cuda.max_memory_allocated() / MB)
+                above[name] = max(above[name] or 0.0, (torch.cuda.max_memory_allocated() - base) / MB)
+        one, msh = states["one"], states["mesh"]
+        bad = [k for k in ("loss", "grad_norm", "lr") if not torch.equal(metrics["one"][k], metrics["mesh"][k])]
+        bad += [f"p {k}" for k, p in one["params"].items() if not torch.equal(p, msh["params"][k])]
+        bad += [f"{n} {k}" for n in ("m", "v") for k, t in one["opt"][n].items()
+                if not (isinstance(msh["opt"][n][k], Sharded) and sharded_equal(t, msh["opt"][n][k]))]
+        if bad:
+            raise AssertionError(f"13a step {i}: the 8x1 mesh step differs from the one-device step: {bad[:5]}")
+        losses.append(float(metrics["one"]["loss"]))
+    moms = [t for n in ("m", "v") for t in states["mesh"]["opt"][n].values()]
+    split_bytes = sum(t.nbytes for t in moms if len(t.blocks) > 1)
+    nums = dict(arch=cfg.name, mesh="8x1", positions_on=str(dev), batch=8, seq=128, steps=3,
+                mesh_step_ms=float(np.median(ms["mesh"])), one_step_ms=float(np.median(ms["one"])),
+                mesh_peak_mib=peak["mesh"], one_peak_mib=peak["one"], mesh_above_resident_mib=above["mesh"],
+                one_above_resident_mib=above["one"], moment_bytes=sum(t.nbytes for t in moms),
+                moment_bytes_split=split_bytes, leaves_split=sum(len(t.blocks) > 1 for t in moms),
+                moment_leaves=len(moms), blocks=sum(len(t.blocks) for t in moms))
+    log(f"lm mesh 13a (ZeRO-1 on 8x1, every position on {dev}; float32 p, m, v, {cfg.dtype} compute; both states "
+        f"resident): {json.dumps(nums)}; steps ms mesh {[round(t, 2) for t in ms['mesh']]} one "
+        f"{[round(t, 2) for t in ms['one']]}; losses {[round(x, 4) for x in losses]}; loss, grad norm, p, m "
+        f"and v equal bit for bit after each step [{smi}]")
+    del states, steps, models, moms, one, msh, batch, metrics
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 13a, elastic: the reduced config on 8x1, checkpointed at step 2, restored
+    # onto 2x1 and onto no mesh, against the uninterrupted 8x1 run
+    rcfg = get_config("tinyllama_1_1b").reduced()
+    rtoks = corpus.token_stream(20_000, rcfg.vocab_size, seed=0)
+
+    def trainer(d, rules):
+        return Trainer(build_model(rcfg), TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=30)),
+                       LoopConfig(total_steps=6, ckpt_every=3, ckpt_dir=str(d), log_every=1),
+                       lambda: corpus.batches(rtoks, 2, 32, seed=0), rules=rules,
+                       device=None if rules is not None else dev)
+
+    with tempfile.TemporaryDirectory() as d:
+        whole = trainer(Path(d) / "whole", MeshRules(mesh("8x1")))
+        whole.train()
+        final, _ = whole.ckpt.restore(5)
+        for name, r in (("2x1", MeshRules(mesh("2x1"))), ("no mesh", None)):
+            tr = trainer(Path(d) / name.replace(" ", "_"), r)
+            st, extra = whole.ckpt.restore(2)
+            tr.ckpt.save(2, st, extra)
+            if tr.train() != 6 or [h["step"] for h in tr.history] != [3, 4, 5]:
+                raise AssertionError(f"13a elastic {name}: ran {[h['step'] for h in tr.history]}")
+            got, _ = CheckpointManager(str(Path(d) / name.replace(" ", "_"))).restore(5)
+            bad = [f"{part} {k}" for part, a, b in (("p", got["params"], final["params"]),
+                                                    ("m", got["opt"]["m"], final["opt"]["m"]),
+                                                    ("v", got["opt"]["v"], final["opt"]["v"]))
+                   for k in b if not torch.equal(a[k], b[k])]
+            if bad:
+                raise AssertionError(f"13a elastic {name}: differs from the uninterrupted 8x1 run: {bad[:5]}")
+    log("lm mesh 13a elastic (reduced tinyllama): saved on 8x1 at step 2, restored onto 2x1 and onto no mesh, "
+        "steps 3-5: p, m and v equal the uninterrupted 8x1 run's bit for bit")
+
+    # 13b: _moe_sharded at full width, card against CPU
+    gcfg = get_config("granite_moe").reduced() if reduced else get_config("granite_moe")
+    p = init_params(moe_specs(gcfg), torch.Generator().manual_seed(0))
+    x = torch.randn((4, 128, gcfg.d_model), generator=torch.Generator().manual_seed(1))
+    pd, xd = {k: v.to(dev) for k, v in p.items()}, x.to(dev)
+    moe_out = []
+    with torch.inference_mode():
+        for cf in (1.25, 4.0):
+            c = dataclasses.replace(gcfg, capacity_factor=cf)
+            for shape in ((1, 1), (2, 1), (1, 2), (2, 2)):
+                n = math.prod(shape)
+                want, aux_w = moe_ffn(p, x, c, mesh=make_mesh(shape, ("data", "model"), ["cpu"] * n))
+                m_dev = make_mesh(shape, ("data", "model"), [dev] * n)
+                got, aux_g = moe_ffn(pd, xd, c, mesh=m_dev)
+                err = max(float((got.cpu() - want).abs().max()) / max(1.0, float(want.abs().max())),
+                          abs(float(aux_g) - float(aux_w)) / max(1.0, abs(float(aux_w))))
+                if not err <= LM_MESH_TOL:
+                    raise AssertionError(f"13b granite_moe cf {cf} on {shape}: card against CPU {err:.3e}")
+                t = []
+                for _ in range(5):
+                    sync()
+                    t0 = time.perf_counter()
+                    moe_ffn(pd, xd, c, mesh=m_dev)
+                    sync()
+                    t.append((time.perf_counter() - t0) * 1e3)
+                moe_out.append(f"cf {cf} {shape[0]}x{shape[1]}: {err:.1e}, {float(np.median(t[1:])):.2f} ms")
+    log(f"lm mesh 13b (_moe_sharded, {gcfg.name}: d_model {gcfg.d_model}, {gcfg.n_experts} experts top-"
+        f"{gcfg.experts_per_token}, float32, batch (4, 128), every position on {dev}): card against CPU "
+        f"(max error / scale) and median ms: {'; '.join(moe_out)} [{smi}]")
+    del p, x, pd, xd, got, want
+
+    # 13c: GPipe over tinyllama's decoder blocks at full width, float32
+    tcfg = dataclasses.replace(cfg, dtype="float32")
+    block = build_model(tcfg)
+    stacked = init_params(stack_specs(block.layer_specs(), tcfg.n_layers), torch.Generator(device=dev).manual_seed(0))
+    xs = torch.randn((4, 2, 128, tcfg.d_model), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+
+    def layer_fn(lp, h):
+        return block._layer(lp, h, positions(h.shape[0], h.shape[1], h.device), None)[0]
+
+    def at(tree, i):
+        return {k: at(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+    def sequential():
+        outs = []
+        for h in xs:
+            for i in range(tcfg.n_layers):
+                h = layer_fn(at(stacked, i), h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    with torch.inference_mode():
+        pipe = make_mesh((2,), ("pipe",), [dev] * 2)
+        got, want = gpipe_forward(layer_fn, stacked, xs, mesh=pipe), sequential()
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        if not err <= LM_MESH_TOL:
+            raise AssertionError(f"13c GPipe against the sequential run: {err:.3e}")
+        t_pipe, t_seq = [], []
+        for _ in range(3):
+            for fn, acc in ((lambda: gpipe_forward(layer_fn, stacked, xs, mesh=pipe), t_pipe), (sequential, t_seq)):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                acc.append((time.perf_counter() - t0) * 1e3)
+    log(f"lm mesh 13c (gpipe_forward, {tcfg.name}'s {tcfg.n_layers} decoder blocks, float32, 2 stages on {dev}, "
+        f"4 microbatches of 2 x 128): against the sequential run {err:.1e} of the scale; ms pipeline "
+        f"{[round(t, 2) for t in t_pipe]}, sequential {[round(t, 2) for t in t_seq]} [{smi}]")
+    del stacked, xs, got, want, block
+
+    # 13d: compressed_psum, card against CPU with the same noise
+    wq = (tcfg.d_model, tcfg.n_heads, tcfg.resolved_head_dim)
+    g = torch.Generator().manual_seed(2)
+    cases = {"4 shards of wq": ([torch.randn(wq, generator=g) * s for s in (1.0, 0.5, 2.0, 0.01)],
+                                [torch.rand(wq, generator=g) - 0.5 for _ in range(4)]),
+             "scales differ": ([torch.tensor([1.0, 0.5]), torch.tensor([0.01, 0.01])], [torch.zeros(2)] * 2)}
+    sums = {}
+    for name, (shards, noise) in cases.items():
+        sums[name] = compressed_psum(shards, noise)
+        got = compressed_psum([s.to(dev) for s in shards], [n.to(dev) for n in noise])
+        if not torch.equal(got.cpu(), sums[name]):
+            raise AssertionError(f"13d compressed_psum {name}: card differs from CPU by "
+                                 f"{float((got.cpu() - sums[name]).abs().max())}")
+    skew = sums["scales differ"]
+    if not torch.allclose(skew, torch.tensor([2.0, 1.504]), atol=5e-4):  # the true sum is [1.01, 0.51]
+        raise AssertionError(f"13d: shards [1.0, 0.5] and [0.01, 0.01] give {skew.tolist()}, not [2.0, 1.504]")
+    log(f"lm mesh 13d (compressed_psum, card against CPU, the same noise): {', '.join(cases)} equal bit for bit; "
+        f"shards [1.0, 0.5] and [0.01, 0.01] give {[round(v, 4) for v in skew.tolist()]} (the reference's formula)")
+
+    got = K.launches()
+    if any(got.values()):
+        raise AssertionError(f"phase 13 launched a kernel of this repo: {got}")
+    took = time.perf_counter() - t_phase
+    log(f"lm mesh: phase 13 took {took:.1f}s; kernel launches {json.dumps(got)} (the path has none)")
+    if on_card and took > LM_MESH_BUDGET_S:
+        raise AssertionError(f"phase 13 took {took:.1f}s, over its {LM_MESH_BUDGET_S:.0f}s budget")
     return nums
 
 
@@ -2453,6 +2833,9 @@ def main() -> int:
 
     # ------------------------------------------ 12. the LM scaffold's training
     lm_train_phase(smi, K)
+
+    # ------------------------------- 13. the LM scaffold's training over a mesh
+    lm_mesh_phase(smi, K)
 
     kernels = []
     for kname, e in entries.items():

@@ -5,9 +5,11 @@ manager reads the other's directories.
 
   - *Atomicity*: a save fills a tmp sibling and renames it into place only
     after every array and the manifest are fsync'd (``atomic.py``).
-  - *Elasticity*: arrays are stored whole on the host, so ``restore`` puts
-    them on whatever ``device`` it is given (the reference re-shards onto
-    another mesh the same way).
+  - *Elasticity*: arrays are stored whole on the host (a save gathers a
+    ``Sharded`` moment's blocks), so ``restore`` puts them on whatever
+    ``device`` it is given, or splits them over any mesh by the
+    ``shardings`` it is given, as the reference's ``restore(shardings=)``
+    re-shards onto another mesh.
   - *Async*: ``save(block=False)`` copies the state to the host, then writes
     on a thread, so the step loop waits only for the device-to-host copy.
   - *Retention*: the ``keep`` most recent checkpoints stay (all if ``keep``
@@ -33,6 +35,7 @@ from repro_torch.checkpoint.atomic import (
     save_array,
     write_dir_atomic,
 )
+from repro_torch.sharding.rules import Sharded
 
 
 def _flatten(tree, prefix=""):
@@ -62,6 +65,8 @@ def _unflatten(flat: dict):
 def _host(x) -> np.ndarray:
     """A host copy: the caller may go on writing ``x`` in place (the train
     step does) while a thread writes the copy."""
+    if isinstance(x, Sharded):
+        x = x.full("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach()
         return (x.float() if x.dtype == torch.bfloat16 else x).to("cpu", copy=True).numpy()
@@ -124,9 +129,12 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None, device=None):
+    def restore(self, step: int | None = None, device=None, shardings=None):
         """-> (state, extra) of ``step`` (the latest by default), tensors on
-        ``device`` (the CPU by default); (None, None) when there is none."""
+        ``device`` (the CPU by default); (None, None) when there is none.
+        ``shardings``: a tree matching (part of) the state whose
+        ``NamedSharding`` leaves split those arrays over their mesh (a
+        ``Sharded`` each) instead."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -134,8 +142,10 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        flat_sh = _flatten(shardings) if shardings is not None else {}
         flat = {}
         for name, meta in manifest["arrays"].items():
             t = torch.from_numpy(np.load(os.path.join(path, meta["file"])))
-            flat[name] = t.to(device) if device is not None else t
+            sh = flat_sh.get(name)
+            flat[name] = sh.split(t) if sh is not None else t.to(device) if device is not None else t
         return _unflatten(flat), manifest["extra"]

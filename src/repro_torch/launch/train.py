@@ -4,13 +4,20 @@
         --reduced --steps 20 --device cpu
 
 Trains a config on one torch device: CUDA unless ``--device`` names another
-(it raises where there is no CUDA device). The reference's ``--mesh`` has no
-counterpart yet. ``--ckpt-dir`` defaults to a directory under the system's
-temporary directory; a run resumes from the latest checkpoint found there.
+(it raises where there is no CUDA device). ``--mesh DxM`` (or ``PxDxM``)
+trains on a mesh, as the reference's ``--mesh``: ``MeshRules`` over
+``make_mesh_from_spec``, the moments split ZeRO-1 over the data positions,
+the rest on the mesh's first device. With ``--device`` every position is
+that device (``--device cpu --mesh 4x2`` runs on the host, ``--device
+cuda:0 --mesh 8x1`` on one card); without it the mesh takes one CUDA
+device a position and raises where there are fewer. ``--ckpt-dir``
+defaults to a directory under the system's temporary directory; a run
+resumes from the latest checkpoint found there.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 
@@ -19,7 +26,9 @@ import numpy as np
 from repro_torch.configs.base import get_config
 from repro_torch.data import corpus
 from repro_torch.fault.failures import FailureInjector
+from repro_torch.launch.mesh import make_mesh_from_spec
 from repro_torch.models.registry import build_model
+from repro_torch.sharding.rules import MeshRules
 from repro_torch.training.optim import OptConfig
 from repro_torch.training.step import TrainConfig
 from repro_torch.training.trainer import LoopConfig, Trainer
@@ -36,6 +45,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compression", default=None, choices=[None, "int8", "topk"])
+    ap.add_argument("--mesh", default=None, help="e.g. 4x2: data x model positions (ZeRO-1 moments over data)")
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
@@ -44,6 +54,13 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
+
+    rules = None
+    if args.mesh:
+        devices = None
+        if args.device is not None:
+            devices = [args.device] * math.prod(int(x) for x in args.mesh.split("x"))
+        rules = MeshRules(make_mesh_from_spec(args.mesh, devices))
 
     toks = corpus.token_stream(2_000_000, cfg.vocab_size, seed=0)
 
@@ -81,8 +98,9 @@ def main(argv=None):
             log_every=max(args.steps // 20, 1),
         ),
         batches,
+        rules=rules,
         failure_injector=injector,
-        device=args.device,
+        device=None if rules is not None else args.device,
     )
     final = trainer.train()
     hist = trainer.history

@@ -4,10 +4,12 @@ parameters and the caches.
 A model is described as a nested dict of ``ParamSpec`` leaves (shape, dtype,
 logical axes), as in the JAX package. From that single description the port
 derives the parameters each block registers (``SpecModule``), materialized
-trees for weights and caches (``init_params``) and parameter counts
-(``n_params``). The XLA dry-run tools of the reference
-(``abstract_params``, ``param_shardings``, ``param_specs_pspec``) have no
-counterpart here.
+trees for weights and caches (``init_params``), parameter counts
+(``n_params``), and a mesh's ``PartitionSpec`` and ``NamedSharding`` trees
+(``param_specs_pspec``, ``param_shardings``, over
+``repro_torch.sharding.MeshRules``; ``models/convert.py`` maps their stacked
+leaves to a ``state_dict``'s keys). The reference's ``abstract_params``
+(``jax.ShapeDtypeStruct`` stand-ins for the XLA dry-run) has no counterpart.
 """
 from __future__ import annotations
 
@@ -115,3 +117,13 @@ class SpecModule(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def param_shardings(tree, rules) -> dict:
+    """The ``NamedSharding`` of every leaf of a ParamSpec tree."""
+    return tree_map(lambda s: rules.sharding(s.axes, s.shape), tree)
+
+
+def param_specs_pspec(tree, rules) -> dict:
+    """The ``PartitionSpec`` of every leaf of a ParamSpec tree."""
+    return tree_map(lambda s: rules.spec(s.axes, s.shape), tree)

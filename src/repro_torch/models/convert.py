@@ -79,6 +79,26 @@ def params_to_reference(cfg, state: dict) -> dict:
     return tree
 
 
+def shardings_from_reference(cfg, tree) -> dict:
+    """A tree of ``NamedSharding``s over the reference's stacked leaves (e.g.
+    ``param_shardings`` of a model's ``param_specs()``) as one sharding a
+    ``state_dict`` key: a key's tensor is its stacked leaf at a leading
+    index, so its spec drops the leaf's leading entries, which must be
+    unsplit."""
+    from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+
+    out = {}
+    for key, path, idx in _paths(build_model(cfg)):
+        sh = tree
+        for k in path:
+            sh = sh[k]
+        lead, rest = sh.spec[:len(idx)], sh.spec[len(idx):]
+        if any(e is not None for e in lead):
+            raise ValueError(f"{key}: a per-layer tensor cannot hold a split of its stacked axes {sh.spec}")
+        out[key] = NamedSharding(sh.mesh, PartitionSpec(*rest))
+    return out
+
+
 def cache_from_reference(tree) -> dict:
     """A reference cache tree (numpy arrays) as the port's cache (tensors)."""
     if isinstance(tree, dict):

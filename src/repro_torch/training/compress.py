@@ -8,9 +8,16 @@ The residual of this step's compression is added to the next step's
 gradient, so the compression error does not accumulate. The rounding noise
 comes from an explicit ``torch.Generator``, one draw a leaf in leaf order;
 ``int8_quantize`` takes the noise itself, so that any source of uniform
-noise (the reference's too) can drive it. The reference's
-``compressed_psum`` is a ``shard_map`` building block of a mesh and has no
-counterpart here.
+noise (the reference's too) can drive it.
+
+``compressed_psum`` is the reference's ``shard_map`` building block for the
+slow axis, single-controller: it takes the tensors of the shards along one
+mesh axis (each on its position's device), quantizes each with its own
+scale and noise, sums the int8 values as int32, and dequantizes the sum
+with the largest scale, as the reference does (``pmax``). Where the shards'
+scales differ that overweights the shards with smaller ones (shards [1.0,
+0.5] and [0.01, 0.01] give [2.0, 1.504], not [1.01, 0.51]); the port keeps
+the reference's formula. The result lands on the first shard's device.
 """
 from __future__ import annotations
 
@@ -58,6 +65,20 @@ def compress_with_feedback(grads: dict, residuals: dict, generator: torch.Genera
         out[k] = y.to(g.dtype)
         new_res[k] = x - y
     return out, new_res
+
+
+def compressed_psum(shards, noise) -> torch.Tensor:
+    """int8-quantized sum of ``shards`` (one tensor per position along the
+    axis), ``noise[i]`` the uniform [-0.5, 0.5) rounding noise of shard i."""
+    dev = shards[0].device
+    qsum, smax = None, None
+    for x, n in zip(shards, noise, strict=True):
+        q, scale = int8_quantize(x.float(), n.to(x.device))
+        q, scale = q.to(dev, torch.int32), scale.to(dev)
+        qsum = q if qsum is None else qsum + q
+        smax = scale if smax is None else torch.maximum(smax, scale)
+    # scales differ per shard: the reference dequantizes with their maximum
+    return qsum.float() * smax
 
 
 def init_residuals(tree: dict) -> dict:

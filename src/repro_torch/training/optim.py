@@ -1,13 +1,23 @@
-"""AdamW with the reference's LR schedule, over a model's ``state_dict``.
+"""AdamW with the reference's LR schedule and ZeRO-1 moments, over a
+model's ``state_dict``.
 
-The JAX package's ``training/optim.py`` on one device: float32 moments, a
-global-norm clip, bias correction and decoupled weight decay, with the
-reference's arithmetic op for op. The update runs leaf by leaf and in
-place (parameters and moments are overwritten, the gradients consumed), so a
-step holds one leaf's temporaries beyond p, g, m and v; it launches 17
-elementwise kernels a leaf plus two a leaf for the global norm. The
-reference's ZeRO-1 moment shardings (``zero_axes``, ``moment_specs``) belong
-to a mesh and have no counterpart here.
+The JAX package's ``training/optim.py``: float32 moments, a global-norm
+clip, bias correction and decoupled weight decay, with the reference's
+arithmetic op for op. The update runs leaf by leaf and in place (parameters
+and moments are overwritten, the gradients consumed), so a step holds one
+leaf's temporaries beyond p, g, m and v; it launches 17 elementwise kernels
+a leaf plus two a leaf for the global norm.
+
+ZeRO-1 (``zero_axes``, ``moment_specs``): a moment carries an extra
+``batch`` (= pod × data) split on its first unsplit dimension that divides
+the data extent. Where the reference pins m and v to those shardings with
+``with_sharding_constraint`` and lets XLA lay them out, ``adamw_update``
+here stores each moment as the blocks of its ``NamedSharding`` (a
+``Sharded``: each distinct block once, on its first position's device) and
+updates each block in place from the matching slice of the gradient and
+the parameter, which stay whole on the mesh's first device. AdamW is
+elementwise and the clip's global norm is taken over the whole gradients,
+so the result is the one-device update bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +25,9 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.models.common import ParamSpec, tree_map
+from repro_torch.sharding.rules import Sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +50,32 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
+def zero_axes(spec: ParamSpec, data_extent: int) -> tuple:
+    """Moment logical axes: param axes + 'batch' (=data) on the first
+    unsharded dim divisible by the data extent (ZeRO-1 partitioning)."""
+    axes = list(spec.axes)
+    for i, (ax, size) in enumerate(zip(axes, spec.shape)):
+        if ax is None and data_extent > 1 and size % data_extent == 0:
+            axes[i] = "batch"
+            break
+    return tuple(axes)
+
+
+def moment_specs(param_specs, rules) -> dict:
+    """ParamSpec tree for m/v with ZeRO-1 axes (``rules``: a ``MeshRules``
+    or None)."""
+    extent = 1
+    if rules is not None:
+        for a in ("pod", "data"):
+            extent *= rules.mesh.shape.get(a, 1)
+
+    def one(s: ParamSpec) -> ParamSpec:
+        axes = zero_axes(s, extent) if rules is not None else s.axes
+        return ParamSpec(s.shape, axes, torch.float32, init="zeros")
+
+    return tree_map(one, param_specs)
+
+
 def init_opt_state(params: dict) -> dict:
     zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
     return {"m": zeros, "v": {k: z.clone() for k, z in zeros.items()},
@@ -49,10 +88,13 @@ def global_norm(leaves) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict):
+def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict, moment_shardings: dict | None = None):
     """One AdamW step over ``params`` (name -> tensor) with ``grads`` of the
     same names. Updates ``params`` and ``opt_state``'s moments in place and
-    scales ``grads`` in place. -> (params, opt_state, {"lr", "grad_norm"})."""
+    scales ``grads`` in place. ``moment_shardings`` (name -> ``NamedSharding``)
+    stores each moment as its blocks (a whole moment is split on its first
+    update, a moment split another way re-split). -> (params, opt_state,
+    {"lr", "grad_norm"})."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     gn = global_norm(grads.values())
@@ -62,13 +104,27 @@ def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict):
     sf = step.float()
     bc1, bc2 = 1 - b1 ** sf, 1 - b2 ** sf
     for k, p in params.items():
-        m, v = opt_state["m"][k], opt_state["v"][k]
         g = grads[k].float().mul_(scale)
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
-        if p.dtype == torch.float32:
-            p.sub_(lr * delta)
+        sh = moment_shardings.get(k) if moment_shardings else None
+        if sh is None:
+            parts = [((), opt_state["m"][k], opt_state["v"][k])]
         else:
-            p.copy_(p.float() - lr * delta)
+            for name in ("m", "v"):
+                mom = opt_state[name][k]
+                if not isinstance(mom, Sharded) or mom.sharding != sh:
+                    whole = mom.full(p.device) if isinstance(mom, Sharded) else mom
+                    opt_state[name][k] = sh.split(whole)
+            m, v = opt_state["m"][k], opt_state["v"][k]
+            parts = [(s, m.blocks[c], v.blocks[c]) for c, s in sh.slices(tuple(p.shape)).items()]
+        for s, m, v in parts:
+            dev = m.device
+            gs = g[s].to(dev)
+            m.mul_(b1).add_((1 - b1) * gs)
+            v.mul_(b2).add_((1 - b2) * gs * gs)
+            delta = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + cfg.eps) + cfg.weight_decay * p[s].float().to(dev)
+            upd = (lr.to(dev) * delta).to(p.device)
+            if p.dtype == torch.float32:
+                p[s].sub_(upd)
+            else:
+                p[s].copy_(p[s].float() - upd)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, {"lr": lr, "grad_norm": gn}

@@ -1,6 +1,6 @@
 """The train step: loss -> grads (autograd) -> optional compression -> AdamW.
 
-The JAX package's ``training/step.py`` on one device. A train state is
+The JAX package's ``training/step.py``. A train state is
 ``{"params", "opt": {"m", "v", "step"}, "rng"}`` plus ``"residuals"`` under
 compression; ``params``, ``m``, ``v`` and ``residuals`` are ``state_dict``
 mappings of the model (``models/convert.py`` maps them to the reference's
@@ -9,8 +9,16 @@ tensor) where the reference keeps a PRNG key. Remat happens per layer
 inside the model's ``loss``. The step runs under deterministic algorithms,
 so that a rerun of the same steps gives the same bits on CUDA too, as XLA's
 steps do (the embedding's and the MoE dispatch's backward would otherwise
-accumulate with atomics). The reference's mesh arguments (``rules``, ZeRO-1
-moment shardings) have no counterpart here.
+accumulate with atomics).
+
+With ``rules`` (a ``repro_torch.sharding.MeshRules``), as in the reference,
+the step pins the moments to their ZeRO-1 shardings (``moment_shardings``:
+the reference's ``moment_specs`` → ``param_shardings`` of the stacked
+trees, mapped to the ``state_dict``'s keys by ``models/convert.py``), and
+nothing else changes: the parameters, the batch and the gradients stay
+whole on the mesh's first device, and the step's results equal the
+one-device step's bit for bit. ``make_train_state`` takes ``rules`` and
+ignores them, as the reference's does: the first step splits the moments.
 """
 from __future__ import annotations
 
@@ -20,10 +28,10 @@ import os
 
 import torch
 
-from repro_torch.models.common import init_params
-from repro_torch.models.convert import params_from_reference
+from repro_torch.models.common import init_params, param_shardings
+from repro_torch.models.convert import params_from_reference, shardings_from_reference
 from repro_torch.training import compress as gc
-from repro_torch.training.optim import OptConfig, adamw_update, init_opt_state
+from repro_torch.training.optim import OptConfig, adamw_update, init_opt_state, moment_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +58,19 @@ def deterministic():
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
-def make_train_state(model, generator: torch.Generator, train_cfg: TrainConfig) -> dict:
+def moment_shardings(model, rules) -> dict | None:
+    """The ZeRO-1 ``NamedSharding`` of each moment (``state_dict`` key ->
+    sharding), or None without ``rules``."""
+    if rules is None:
+        return None
+    return shardings_from_reference(model.cfg, param_shardings(moment_specs(model.param_specs(), rules), rules))
+
+
+def make_train_state(model, generator: torch.Generator, train_cfg: TrainConfig, rules=None) -> dict:
     """A fresh state on ``generator``'s device: parameters drawn from it by
     the reference's init rules (in its leaf order), zero moments, and the
-    state of a generator seeded 0 where the reference keeps ``PRNGKey(0)``."""
+    state of a generator seeded 0 where the reference keeps ``PRNGKey(0)``.
+    ``rules`` is taken and ignored, as by the reference."""
     tree = init_params(model.param_specs(), generator)
     params = {k: v.clone() for k, v in params_from_reference(model.cfg, tree).items()}  # own storage a leaf
     del tree
@@ -67,13 +84,16 @@ def make_train_state(model, generator: torch.Generator, train_cfg: TrainConfig) 
     return state
 
 
-def make_train_step(model, train_cfg: TrainConfig):
+def make_train_step(model, train_cfg: TrainConfig, rules=None):
     """-> ``train_step(state, batch) -> (state, metrics)``, metrics ``loss``,
     ``lr`` and ``grad_norm`` (device scalars). ``model`` is the family's
     module (``build_model``); the step binds ``state["params"]`` to it
     without a copy and updates the state's tensors in place (p, g, m and v of
     a full-size model fill the card once, not twice). ``batch`` holds
-    tensors on the state's device."""
+    tensors on the state's device; under ``rules`` that is the mesh's first
+    device."""
+    mom_shardings = moment_shardings(model, rules)
+    first = rules.mesh.devices.flat[0] if rules is not None else None
     bound = {}  # the params mapping the model holds, and its generator
 
     def train_step(state: dict, batch: dict):
@@ -81,6 +101,8 @@ def make_train_step(model, train_cfg: TrainConfig):
         if bound.get("params") is not params:
             model.load_state_dict(params, strict=True, assign=True)  # shares each tensor's storage
             dev = next(iter(params.values())).device
+            if first is not None and dev != first:
+                raise ValueError(f"the parameters are on {dev}, not on the mesh's first device {first}")
             bound.update(params=params, gen=torch.Generator(device=dev) if train_cfg.compression else None)
         leaves = dict(model.named_parameters())
         with deterministic():
@@ -96,7 +118,7 @@ def make_train_step(model, train_cfg: TrainConfig):
             grads, new_state["residuals"] = gc.compress_with_feedback(
                 grads, state["residuals"], gen, train_cfg.compression, train_cfg.topk_frac)
             new_state["rng"] = gen.get_state()
-        _, new_state["opt"], metrics = adamw_update(train_cfg.opt, params, grads, state["opt"])
+        _, new_state["opt"], metrics = adamw_update(train_cfg.opt, params, grads, state["opt"], mom_shardings)
         return new_state, dict(metrics, loss=loss.detach())
 
     return train_step

@@ -1,5 +1,7 @@
 """Training loop: step function + checkpointing + fault handling — the JAX
-package's ``training/trainer.py`` on one torch device.
+package's ``training/trainer.py``, on one torch device or, with ``rules``,
+on a mesh (``training/step.py``: ZeRO-1 moments over the mesh's positions,
+everything else on its first device).
 
 Async checkpoints every ``ckpt_every`` steps and at the end,
 restart-from-latest on (injected or real) failures, straggler flagging, and
@@ -22,7 +24,7 @@ import torch
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.fault.failures import FailureInjector, StragglerMonitor, run_with_restarts
-from repro_torch.training.step import TrainConfig, make_train_state, make_train_step
+from repro_torch.training.step import TrainConfig, make_train_state, make_train_step, moment_shardings
 
 
 @dataclasses.dataclass
@@ -38,7 +40,8 @@ class LoopConfig:
 class Trainer:
     """``batches()`` returns a fresh, seeded iterator of batches (dicts of
     numpy arrays); each batch moves to ``device`` (CUDA unless the caller
-    passes another) before its step."""
+    passes another; under ``rules``, the mesh's first device) before its
+    step. A restart restores the moments onto the mesh's shardings."""
 
     def __init__(
         self,
@@ -46,6 +49,7 @@ class Trainer:
         train_cfg: TrainConfig,
         loop_cfg: LoopConfig,
         batches: Callable[[], Iterator[dict]],
+        rules=None,
         failure_injector: FailureInjector | None = None,
         device=None,
     ):
@@ -53,19 +57,25 @@ class Trainer:
         self.train_cfg = train_cfg
         self.loop = loop_cfg
         self.batches = batches
+        self.rules = rules
         self.injector = failure_injector
-        self.device = resolve_device(device)
+        if rules is not None and device is not None:
+            raise ValueError("a Trainer with rules runs on its mesh's first device: pass no device")
+        self.device = rules.mesh.devices.flat[0] if rules is not None else resolve_device(device)
         self.ckpt = CheckpointManager(loop_cfg.ckpt_dir)
         self.monitor = StragglerMonitor(loop_cfg.straggler_threshold)
         self.history: list[dict] = []
-        self._step_fn = make_train_step(model, train_cfg)
+        self._step_fn = make_train_step(model, train_cfg, rules)
+        sh = moment_shardings(model, rules)
+        self._restore_shardings = {"opt": {"m": sh, "v": sh}} if sh is not None else None
 
     def _fresh_state(self):
-        return make_train_state(self.model, torch.Generator(device=self.device).manual_seed(42), self.train_cfg)
+        return make_train_state(self.model, torch.Generator(device=self.device).manual_seed(42), self.train_cfg,
+                                self.rules)
 
     def _run_once(self, start_step: int) -> int:
         if start_step > 0:
-            state, _ = self.ckpt.restore(device=self.device)
+            state, _ = self.ckpt.restore(device=self.device, shardings=self._restore_shardings)
         else:
             state = self._fresh_state()
         gen = self.batches()

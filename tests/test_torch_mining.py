@@ -152,6 +152,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     assert len(mods) >= 25
+    assert {"repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.training.pipeline"} <= set(mods)
 
 
 def test_chip_smoke_imports_and_cpu_exit(tmp_path):

@@ -250,10 +250,13 @@ def test_float32_gradients_near_float64(arch, full, monkeypatch):
     """How far float32 gradients lie from a float64 evaluation, the basis of
     two tolerances: the encdec's here (the reference's and the port's
     float32 gradients each within 1e-3 of float64 on the reduced config, so
-    within about that of each other) and the xLSTM's card-against-CPU
-    tolerance in ``chip_smoke.py`` (3e-3: the CPU's float32 gradients at full
-    width and the family's fewest layers within half of it). ``-s`` prints
-    the gaps."""
+    within about that of each other) and the xLSTM's in ``chip_smoke.py``
+    phase 12c. There each side's float32 gradients, at full width and the
+    family's fewest layers, are held within 1.5e-3 of float64, the bound
+    here; the CPU's lie 4.65e-4 away and the card's 7.25e-4, on the same
+    leaf (groups.0.mlstm.1.w_if) and on opposite sides, so the card and the
+    CPU differ by up to their sum (1.19e-3 measured), within the 3e-3 that
+    two such distances allow. ``-s`` prints the gaps."""
     if full:  # phase 12c's cut: one xLSTM group (slstm_every layers) at full width
         full_cfg = get_config(arch)
         cfg = dataclasses.replace(full_cfg, n_layers=full_cfg.slstm_every, dtype="float32")

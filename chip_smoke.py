@@ -162,8 +162,22 @@ Phases, in order; any failure raises and exits non-zero:
      13d ``compressed_psum`` card against CPU bit for bit, on 4 shards of
      tinyllama's ``wq`` shape and on shards whose scales differ. The phase
      stays within 120 s.
-Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9
-and 10), and last the device line.
+ 14. the dry-run tooling (``repro_torch.launch.{cost,roofline,dryrun,
+     dryrun_fim}``): 14a ``dryrun_fim.run`` at the reference's production
+     scale (R = 1,048,576 × 48 Zipf rows over 41,270 items, K = 2,048,
+     W = 512, C = 8,192) on ``1x1`` and on ``2x2`` with every position on
+     ``cuda:0``: each stage's outputs equal to the same stage run with the
+     plain kernel versions on the card, exactly (B3 in job1, B4 in f2, B2 in
+     the 1x1 shuffle wave, B1 in the other waves; job2 runs no kernel and is
+     run twice), each stage's median ms, roofline terms, ratio and peak
+     memory printed; then B3, B4, B2 and B1 timed alone at those shapes
+     against their plain versions and their cost functions' bounds (and
+     B3's, B4's library calls); 14b ``dryrun.main(["--all", "--mesh",
+     "16x16", ...])`` on the host (meta, 8 processes): no cell in error, the
+     compiled and skipped cells as ``registry.applicable`` says (32 and 8),
+     one line a cell. The phase stays within 150 s.
+Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9,
+10 and 14), and last the device line.
 
 It needs a CUDA device and the repository's ``src/`` beside it; without
 either it exits non-zero and prints no result.
@@ -187,8 +201,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor fp32 rate, used for the scalar integer work
 MB = 1 << 20
 
 
@@ -216,11 +228,6 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def assert_equal(name: str, got, want) -> int:
@@ -272,50 +279,6 @@ def level2_wave(miner, prep, min_count):
     idx, _, _ = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
     planes = prep.packed[0].permute(2, 0, 1).contiguous()
     return planes, planes[2], torch.from_numpy(idx).cuda(), len(ranks)
-
-
-def wave_bytes(planes, state, idx, n_live, stop=None):
-    """Bytes one wave must move: each input read once, each output written
-    once, as far as this wave's data needs them. Padding is a suffix and
-    merges nothing, so candidate b needs its A pre/post (extension item's
-    row) up to slot p_b, which is ``stop`` (B2: its first dead slot, from
-    ``ref.first_dead_slot``) or else the valid length, and with ``stop`` its
-    A counts up to the valid length (the liveness rule needs their suffix
-    mass); the counts (parent's state row) of the Y codes whose only
-    possible ancestor lies before p_b, and their pre/post (base item's row)
-    where the count is nonzero. A row that several candidates read counts
-    once, as does ``planes[2]`` when ``state`` is that plane. Every slot's
-    merged row and support is written; the live index columns are read.
-    -> (bytes, nonzero Y codes merged over all candidates)."""
-    K, W = planes.shape[1], planes.shape[2]
-    B = idx.shape[1]
-    live = idx[:, :n_live]
-    pad = torch.iinfo(torch.int32).max
-    lens = (planes[0] != pad).sum(1)
-    na, ny = lens[live[2]], lens[live[1]]
-    a_pre, y_pre = planes[0][live[2]], planes[0][live[1]]
-    p = na if stop is None else torch.minimum(stop.to(na.dtype), na)
-    # Y codes with y_pre <= a_pre[p] have their ancestor before slot p
-    top = a_pre.gather(1, p.clamp(max=W - 1)[:, None])[:, 0]
-    thr = torch.where(p < na, top, pad)
-    my = torch.minimum(torch.searchsorted(y_pre, thr[:, None].contiguous(), right=True)[:, 0], ny)
-    cols = torch.arange(W, device=idx.device)
-    y_need = cols < my[:, None]
-    y_nz = (state[live[0]] != 0) & y_need
-
-    def union(n_rows, rows, mask):  # (n_rows, W): slots some candidate needs
-        hits = torch.zeros((n_rows, W), dtype=torch.int32, device=idx.device)
-        return hits.index_add_(0, rows, mask.to(torch.int32)) > 0
-
-    pre_post = union(K, live[2], cols < p[:, None]) | union(K, live[1], y_nz)
-    counts = union(state.shape[0], live[0], y_need)
-    a_cnt = union(K, live[2], cols < na[:, None]) if stop is not None else torch.zeros_like(pre_post)
-    if state.data_ptr() == planes[2].data_ptr() and state.shape == planes[2].shape:
-        n_cnt = int((counts | a_cnt).sum())
-    else:
-        n_cnt = int(counts.sum()) + int(a_cnt.sum())
-    n = 8 * int(pre_post.sum()) + 4 * n_cnt + B * W * 4 + B * 4 + 3 * n_live * 8
-    return n, int(y_nz.sum())
 
 
 def host_answer(data, host, name, min_count):
@@ -802,7 +765,10 @@ def stream_phase(K, data, host, smi: str):
     from repro_torch.core import encoding as enc
     from repro_torch.data.synth import random_db
     from repro_torch.kernels.cooccur import ref as cooc_ref
+    from repro_torch.kernels.cooccur.ops import cooccur_cost
     from repro_torch.kernels.nlist_intersect import ref as nl_ref
+    from repro_torch.kernels.nlist_intersect.ops import wave_cost
+    from repro_torch.launch.roofline import bound_ms
     from repro_torch.mining import MineSpec, MiningEngine, MiningService
     from repro_torch.mining.continuous import damped_oracle, replay_diffs
     from repro_torch.mining.stream import StreamSpec
@@ -976,9 +942,8 @@ def stream_phase(K, data, host, smi: str):
                            (K.cooccur_cuda(ranked, wr, n_items=seg.k),),
                            (cooc_ref.cooccur_ref(ranked, wr, n_items=seg.k),))
         R, L = ranked.shape
-        nvalid = (ranked >= 0).sum(1).to(torch.int64)
-        pairs = int((nvalid * nvalid).sum())
-        b, by = bound(R * L * 4 + R * 4 + seg.k * seg.k * 4, pairs)
+        nb, pairs = cooccur_cost(ranked, wr, n_items=seg.k)
+        b, by = bound_ms(nb, pairs)
         X = torch.zeros((R, seg.k + 1), dtype=torch.float32, device=dev)
         X.scatter_add_(1, torch.where(ranked >= 0, ranked, seg.k).long(),
                        torch.ones_like(ranked, dtype=torch.float32))
@@ -991,7 +956,7 @@ def stream_phase(K, data, host, smi: str):
                     library_ms=time_ms(lambda: X.T @ X, reps=3),
                     library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
                     bound_ms=b, bound_by=by)
-        del ranked, wr, lut, nvalid, X
+        del ranked, wr, lut, X
         h = psm.db.handles()[0]
         planes, single = h.planes[0], h.singleton[0]  # the one data shard
         qs, ps = np.nonzero(C >= mc)
@@ -1003,9 +968,10 @@ def stream_phase(K, data, host, smi: str):
         got = K.nlist_wave_cuda(planes, single, local, n_live)
         err = assert_equal("nlist_intersect pumsb segment", got,
                            nl_ref.nlist_wave_ref(planes, single, local, n_live))
-        nb, nz = wave_bytes(planes, single, local, n_live)
+        nb, ops = wave_cost(planes, single, local, n_live)
         W = planes.shape[2]
-        b, by = bound(nb, nz * (math.ceil(math.log2(W)) + 2))
+        nz = ops // (math.ceil(math.log2(W)) + 2)
+        b, by = bound_ms(nb, ops)
         wave = dict(shape=f"pumsb stream segment level-2 wave: {n_live} candidates, Cpad "
                           f"{idx.shape[1]} x W {W}, planes (3, {seg.k + 1}, {W}) with the "
                           f"sentinel row, {nz} nonzero Y codes", max_abs_err=err,
@@ -1735,6 +1701,7 @@ def lm_phase(smi: str, dev="cuda", reduced: bool = False) -> dict:
     ``reduced=True, dev="cpu"`` rehearses it on the CPU with the reduced
     configs. -> tinyllama's numbers (11c)."""
     from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.launch import roofline
     from repro_torch.models.common import init_params, n_params
     from repro_torch.models.convert import params_from_reference
     from repro_torch.models.registry import build_model
@@ -1861,7 +1828,7 @@ def lm_phase(smi: str, dev="cuda", reduced: bool = False) -> dict:
                     if tl["device_events"] else "device time not measured (the profiler recorded none)")
     n = n_params(build_model(cfg).param_specs())
     kv_bytes = sum(t.numel() * t.element_size() for t in (cache["kv"]["k"], cache["kv"]["v"], cache["kv"]["pos"]))
-    bound_ms = (n * 4 + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = (n * 4 + kv_bytes) / roofline.HBM_BYTES_PER_S * 1e3
     med = float(np.median(dec_ms[2:]))
     nums = dict(arch="tinyllama_1_1b", batch=4, max_seq=128, prompt_len=plen, prefill_ms=float(np.median(pre_ms)),
                 decode_ms_per_step=med, decode_tokens_per_s=4 * 1e3 / med,
@@ -1897,7 +1864,6 @@ LM_TRAIN_TOL = {"ssm": 3e-3}
 LM_TRAIN_TOL_DEFAULT = 1e-3
 LM_TRAIN_F64_TOL = {"ssm": 1.5e-3}
 LM_TRAIN_BUDGET_S = 180.0
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (NVIDIA data sheet)
 
 
 def train_bound(cfg, batch: int, seq: int) -> dict:
@@ -1907,6 +1873,7 @@ def train_bound(cfg, batch: int, seq: int) -> dict:
     forward and backward) and its bytes at the HBM rate (the step's inputs
     and outputs are p, m and v in float32: each read once and written
     once)."""
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, PEAK_BF16_FLOPS
     from repro_torch.models.common import n_params
     from repro_torch.models.registry import build_model
 
@@ -2512,6 +2479,205 @@ def lm_mesh_phase(smi: str, K, dev="cuda", reduced: bool = False) -> dict:
     return nums
 
 
+# ------------------------------------------------ phase 14: the dry-run tooling
+DRYRUN_BUDGET_S = 150.0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The miner's kernel ops replaced by their plain PyTorch versions, on
+    whatever device the tensors lie (the reference run of phase 14a)."""
+    import repro_torch.core.hprepost as hp
+    from repro_torch.kernels.cooccur.ref import cooccur_ref
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.nlist_intersect.ref import nlist_wave_ref
+
+    def ones(r):
+        return torch.ones(r.shape[0], dtype=torch.int32, device=r.device)
+
+    saved = hp.item_histogram, hp.cooccurrence_matrix, hp.nlist_wave
+    hp.item_histogram = lambda r, n_bins, backend=None: histogram_ref(r, ones(r), n_bins=n_bins)
+    hp.cooccurrence_matrix = lambda r, n_items, backend=None: cooccur_ref(r, ones(r), n_items=n_items)
+    hp.nlist_wave = lambda planes, prev, idx, n_live, backend=None, la_block=512, early_stop=False, \
+        min_count=0: nlist_wave_ref(planes, prev, idx, n_live, early_stop=early_stop,
+                                    min_count=min_count, la_block=la_block)
+    try:
+        yield
+    finally:
+        hp.item_histogram, hp.cooccurrence_matrix, hp.nlist_wave = saved
+
+
+def tensors_equal(name: str, got, want) -> None:
+    """Exact equality of two nests of tensors (lists, tuples)."""
+    if isinstance(got, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} parts against {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            tensors_equal(f"{name}[{i}]", g, w)
+        return
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} against plain {want.shape}/{want.dtype}")
+    if not torch.equal(got, want):
+        bad = got != want
+        rows = bad.reshape(bad.shape[0], -1).any(1).sum() if bad.dim() else bad
+        raise AssertionError(f"{name}: {int(bad.sum())} entries in {int(rows)} rows differ from its plain "
+                             f"run, max abs error {int((got.long() - want.long()).abs().max())}")
+
+
+def dryrun_phase(smi: str, K, dev="cuda", scale: float = 1.0, sweep_mesh: str = "16x16",
+                 jobs: int = 8) -> tuple[dict, dict]:
+    """Phase 14 (see the module docstring). ``dev="cpu"`` with a small
+    ``scale`` (and a small ``sweep_mesh``) rehearses it on the CPU. -> (this
+    phase's launches, each kernel's entry at the production shapes)."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.kernels.cooccur import ref as cooc_ref
+    from repro_torch.kernels.cooccur.ops import cooccur_cost
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.histogram.ops import histogram_cost
+    from repro_torch.kernels.nlist_intersect import ref as nl_ref
+    from repro_torch.kernels.nlist_intersect.ops import wave_cost
+    from repro_torch.launch import dryrun, dryrun_fim
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.launch.roofline import bound_ms
+    from repro_torch.models.registry import SHAPES, applicable
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    R, C = int(1_048_576 * scale), int(8192 * scale) or 256
+
+    # 14a: the FIM stages at production scale, each against its plain run
+    K.reset_launches()
+    runs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for spec in ("1x1", "2x2"):
+            n = math.prod(int(x) for x in spec.split("x"))
+            outputs = {}
+            t0 = time.perf_counter()
+            recs = dryrun_fim.run(make_mesh_from_spec(spec, [dev] * n), spec, R=R, C=C, device=dev,
+                                  out_dir=out_dir, reps=3, outputs=outputs)
+            took = time.perf_counter() - t0
+            runs[spec] = (recs, outputs)
+            written = sorted(os.listdir(out_dir))
+            if not all(f"fim_{st}__{spec}.json" in written for st in dryrun_fim.STAGES):
+                raise AssertionError(f"dryrun_fim wrote {written}")
+            for st, rec in recs.items():
+                log(f"fim {st} x {spec}: {rec['ms']:.3f} ms (median of 3), bound {rec['bottleneck']} "
+                    f"(t_compute {rec['t_compute'] * 1e3:.4f} t_memory {rec['t_memory'] * 1e3:.4f} "
+                    f"t_collective {rec['t_collective'] * 1e3:.4f} ms), {rec['ratio']:.1f}x the bound, "
+                    f"peak {rec['peak_device_bytes'] / MB:.1f} MiB, {rec['n_ops']} ops traced "
+                    f"[R {rec['R']} x {rec['L']}, K {rec['K']}, W {rec['W']}, C {rec['C']}] [{smi}]")
+            log(f"fim {spec}: run and costed in {took:.1f}s")
+    got = K.launches()
+    need = {"histogram", "cooccur", "nlist_intersect", "nlist_intersect_es"}
+    if on_card and not all(got[k] > 0 for k in need):
+        raise AssertionError(f"a kernel of the FIM stages was not launched in phase 14a: {got}")
+    for spec, (recs, outputs) in runs.items():
+        with plain_kernels():
+            for st in dryrun_fim.STAGES:
+                tensors_equal(f"fim {st} x {spec}", outputs[st], outputs["stages"][st]())
+        log(f"  fim x {spec}: every stage equal to its run with the plain kernel versions on the card")
+    if on_card:
+        torch.cuda.synchronize()
+
+    # the four kernels alone at the production shapes (the 1x1 stages' inputs)
+    entries = {}
+    inp = runs["1x1"][1]["inputs"]
+    rows_d = torch.from_numpy(inp["rows"]).to(dev)
+    w1 = torch.ones(rows_d.shape[0], dtype=torch.int32, device=dev)
+    n_items = 41_270
+    timing = time_ms if on_card else (lambda fn, **kw: float("nan"))
+    b, by = bound_ms(*histogram_cost(rows_d, w1, n_bins=n_items))
+    flat = rows_d.reshape(-1)
+    valid = flat[flat >= 0].long()
+    entries["histogram"] = dict(
+        shape=f"Zipf rows {tuple(rows_d.shape)}, {n_items} bins", max_abs_err=assert_equal(
+            "histogram fim", (K.histogram_cuda(rows_d, w1, n_bins=n_items),),
+            (hist_ref.histogram_ref(rows_d, w1, n_bins=n_items),)),
+        ms=timing(lambda: K.histogram_cuda(rows_d, w1, n_bins=n_items)),
+        plain_ms=timing(lambda: hist_ref.histogram_ref(rows_d, w1, n_bins=n_items), reps=3),
+        library_ms=timing(lambda: torch.bincount(valid, minlength=n_items)),
+        library_call="torch.bincount over the valid ids (compacted outside the timing)",
+        bound_ms=b, bound_by=by)
+    ranked = runs["1x1"][1]["job2_tree"][0][0]
+    k = inp["K"]
+    nb, pairs = cooccur_cost(ranked, w1, n_items=k)
+    b, by = bound_ms(nb, pairs)
+    X = torch.zeros((ranked.shape[0], k + 1), dtype=torch.float32, device=dev)
+    X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
+    X = X[:, :k].contiguous()
+    entries["cooccur"] = dict(
+        shape=f"ranked rows {tuple(ranked.shape)}, K={k}, {pairs} pair updates",
+        max_abs_err=assert_equal("cooccur fim", (K.cooccur_cuda(ranked, w1, n_items=k),),
+                                 (cooc_ref.cooccur_ref(ranked, w1, n_items=k),)),
+        ms=timing(lambda: K.cooccur_cuda(ranked, w1, n_items=k)),
+        plain_ms=timing(lambda: cooc_ref.cooccur_ref(ranked, w1, n_items=k), reps=2),
+        library_ms=timing(lambda: X.T @ X, reps=3),
+        library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+        bound_ms=b, bound_by=by)
+    del X, valid, flat
+    Cs, W = inp["C"] // inp["Mb"], inp["W"]
+    planes = torch.from_numpy(inp["planes"][0]).to(dev)
+    state = torch.from_numpy(inp["state"][0]).to(dev)
+    idx = torch.from_numpy(np.ascontiguousarray(inp["idx_shuffle"])).to(dev)
+    stop = inp["stop"]
+    for kname, kw in (("nlist_intersect", {}),
+                      ("nlist_intersect_es", dict(early_stop=True, min_count=stop, la_block=512))):
+        nb, ops = wave_cost(planes, state, idx, Cs, **kw)
+        b, by = bound_ms(nb, ops)
+        entries[kname] = dict(
+            shape=f"synthetic wave: C {Cs} x W {W}, planes (3, {k}, {W}), parents (C, W)"
+                  + (f", min_count {stop}, la_block 512" if kw else ""),
+            max_abs_err=assert_equal(f"{kname} fim", K.nlist_wave_cuda(planes, state, idx, Cs, **kw),
+                                     nl_ref.nlist_wave_ref(planes, state, idx, Cs, **kw)),
+            ms=timing(lambda: K.nlist_wave_cuda(planes, state, idx, Cs, **kw)),
+            plain_ms=timing(lambda: nl_ref.nlist_wave_ref(planes, state, idx, Cs, **kw), reps=3),
+            library_ms=None, bound_ms=b, bound_by=by)
+    for kname, e in entries.items():
+        log(f"  {kname} at production shapes ({e['shape']}): {e['ms']:.4f} ms against plain "
+            f"{e['plain_ms']:.3f} ms, library {e['library_ms']}, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) [{smi}]")
+    del rows_d, w1, ranked, planes, state, idx, runs
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 14b: the LM dry-run over every cell on a 16x16 mesh of meta positions
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            dryrun.main(["--all", "--mesh", sweep_mesh, "--out", out_dir, "--jobs", str(jobs)])
+        except SystemExit as e:
+            raise AssertionError(f"the {sweep_mesh} dry-run sweep failed ({e.code})") from None
+        recs = [json.load(open(os.path.join(out_dir, f))) for f in sorted(os.listdir(out_dir))]
+    errors = [r for r in recs if "error" in r]
+    done = [r for r in recs if "skipped" not in r and "error" not in r]
+    skipped = [r for r in recs if "skipped" in r]
+    want_done = sum(applicable(get_config(a), s)[0] for a in ARCH_IDS for s in SHAPES)
+    if errors or len(done) != want_done or len(done) + len(skipped) != len(ARCH_IDS) * len(SHAPES):
+        raise AssertionError(f"dry-run sweep: {len(done)} traced (want {want_done}), {len(skipped)} "
+                             f"skipped, errors {errors[:3]}")
+    for r in recs:
+        if "skipped" in r:
+            log(f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}: skipped ({r['skipped']})")
+        else:
+            log(f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}: trace {r['trace_s']}s, "
+                f"flops/dev {r['flops_per_device']:.4g}, hbm {r['hbm_bytes_per_device']:.4g} B, "
+                f"wire {r['collective_wire_bytes']:.4g} B -> {r['bottleneck']} (t_compute "
+                f"{r['t_compute']:.4g} t_memory {r['t_memory']:.4g} t_collective "
+                f"{r['t_collective']:.4g} s), useful {r['useful_flops_ratio']:.3f}, args/dev "
+                f"{r['arg_bytes_per_device']} B, temp {r['mem_temp_size_in_bytes']} B")
+    log(f"dryrun {sweep_mesh}: {len(done)} cells traced, {len(skipped)} skipped, none in error, in "
+        f"{time.perf_counter() - t0:.1f}s ({jobs} processes)")
+    took = time.perf_counter() - t_phase
+    log(f"dry-run tooling: phase 14 took {took:.1f}s; kernel launches {json.dumps(got)}")
+    if took > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase 14 took {took:.1f}s, over its {DRYRUN_BUDGET_S:.0f}s budget")
+    return got, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2529,7 +2695,11 @@ def main() -> int:
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.cooccur import ref as cooc_ref
     from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.cooccur.ops import cooccur_cost
+    from repro_torch.kernels.histogram.ops import histogram_cost
     from repro_torch.kernels.nlist_intersect import ref as nl_ref
+    from repro_torch.kernels.nlist_intersect.ops import wave_cost
+    from repro_torch.launch.roofline import bound_ms
     from repro_torch.mining import MineSpec, MiningEngine
 
     # ---------------------------------------------------------- 1. environment
@@ -2580,7 +2750,7 @@ def main() -> int:
         ids = torch.where(flat >= 0, flat.long(), n_bins)  # PAD -> one spare bin
         ones = torch.ones_like(ids, dtype=torch.int32)
         lib_out = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
-        b, by = bound(R * L * 4 + R * 4 + n_bins * 4, R * L)
+        b, by = bound_ms(*histogram_cost(rows_d, w1, n_bins=n_bins))
         e = dict(
             shape=f"{name} rows {R}x{L}, {n_bins} bins, {valid.numel()} valid slots", max_abs_err=err,
             ms=time_ms(lambda: K.histogram_cuda(rows_d, w1, n_bins=n_bins)),
@@ -2621,9 +2791,8 @@ def main() -> int:
         X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
         X = X[:, :k].contiguous()
         R, L = ranked.shape
-        nvalid = (ranked >= 0).sum(1).to(torch.int64)
-        pairs = int((nvalid * nvalid).sum())
-        b, by = bound(R * L * 4 + R * 4 + k * k * 4, pairs)
+        nb, pairs = cooccur_cost(ranked, wr, n_items=k)
+        b, by = bound_ms(nb, pairs)
         e = dict(
             shape=f"{name} ranked rows {R}x{L}, K={k}, {pairs} pair updates", max_abs_err=err,
             ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k)),
@@ -2653,7 +2822,7 @@ def main() -> int:
         else:
             entries["cooccur"][f"at_{name}"] = e
         log(f"  B4 equal to its plain version on {name} (K={k})")
-        del X, ranked, nvalid, wr, lut
+        del X, ranked, wr, lut
 
     # B1 and B2 at the level-2 waves of mushroom (W=2048), pumsb and kosarak
     # (both W=16384), through the wave entry the miner calls
@@ -2676,17 +2845,16 @@ def main() -> int:
         log(f"  B1 and B2 (wave entry) equal to their plain versions on {name} "
             f"(B2 at min_count 0, {mc // 2}, {mc}, {2 * mc}, 2^30 x la_block {', '.join(map(str, labs))})")
         # the bounds count what this wave's data needs, each input once (see
-        # wave_bytes); B2's at min_count mc and la_block 512, the case timed
-        # below
+        # ops.wave_cost); B2's at min_count mc and la_block 512, the case
+        # timed below
         live = idx[:, :n_live]
         dead_at = nl_ref.first_dead_slot(exact, planes[2][live[2]], mc, 512)
-        by_1, nz1 = wave_bytes(planes, state, idx, n_live)
-        by_2, nz2 = wave_bytes(planes, state, idx, n_live, stop=dead_at)
-        logw = math.ceil(math.log2(W)) + 2
+        by_1, ops1 = wave_cost(planes, state, idx, n_live)
+        by_2, ops2 = wave_cost(planes, state, idx, n_live, early_stop=True, min_count=mc, la_block=512)
         shape = (f"{name} level-2 wave: {n_live} candidates, Cpad {B} x W {W}, "
-                 f"{nz1} nonzero Y codes, wave entry (no gathers)")
-        b1, by1 = bound(by_1, nz1 * logw)
-        b2, by2 = bound(by_2, nz2 * logw)
+                 f"{ops1 // (math.ceil(math.log2(W)) + 2)} nonzero Y codes, wave entry (no gathers)")
+        b1, by1 = bound_ms(by_1, ops1)
+        b2, by2 = bound_ms(by_2, ops2)
         na = (planes[0][live[2]] != torch.iinfo(torch.int32).max).sum(1)
         log(f"  bounds: B1 {by_1} bytes, B2 {by_2} bytes, each input read once "
             f"({int((dead_at < na).sum())} of {n_live} candidates die before their last valid slot)")
@@ -2837,10 +3005,16 @@ def main() -> int:
     # ------------------------------- 13. the LM scaffold's training over a mesh
     lm_mesh_phase(smi, K)
 
+    # --------------------------------------------------- 14. the dry-run tooling
+    dry_launches, dry_entries = dryrun_phase(smi, K)
+    for kname, e in dry_entries.items():
+        entries[kname]["at_fim_production"] = e
+
     kernels = []
     for kname, e in entries.items():
         n = (total[kname] + engine_launches[kname] + service_launches[kname]
-             + stream_launches[kname] + mesh_launches[kname] + dist_launches[kname])
+             + stream_launches[kname] + mesh_launches[kname] + dist_launches[kname]
+             + dry_launches[kname])
         kernels.append(dict(name=kname, route="cuda", launches=n, kernel_ms=e["ms"], **e))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

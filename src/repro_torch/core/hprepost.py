@@ -57,6 +57,7 @@ from repro_torch.fault import failures
 from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
 from repro_torch.kernels.histogram.ops import item_histogram
 from repro_torch.kernels.nlist_intersect.ops import EXACT_MAX, nlist_wave
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.mining import tune
 from repro_torch.mining.telemetry import trace
@@ -414,10 +415,15 @@ class _HostRead:
         return out if self._shape is None else out.reshape(self._shape)
 
 
-def _sum_to(parts, device: torch.device) -> torch.Tensor:
+def _sum_to(parts, device: torch.device, first_local: bool = True) -> torch.Tensor:
     """Σ ``parts`` on ``device``: the reference's ``psum`` over the data
     shards. Integer counts stay exact: each is bounded by the row count,
-    which ``prepare`` guards below the kernels' int32 bound."""
+    which ``prepare`` guards below the kernels' int32 bound. Charged as an
+    all-reduce of one part's bytes, every part leaving its position but the
+    first when ``first_local`` (it lies on the reduce position)."""
+    if len(parts) > 1:
+        nb = parts[0].numel() * parts[0].element_size()
+        cost.collective("all-reduce", nb, nb * (len(parts) - first_local))
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
@@ -544,17 +550,10 @@ class HPrepostMiner:
                 f"2^31-1 of the CUDA kernels' counts; shard the database over "
                 f"more devices (D={D})"
             )
-        rows_c = np.require(rows, np.int32, ["C"])
-        shard_rows = []  # per shard: its block of Rs rows on position (d, 0)
-        for d in range(D):
-            block = rows_c[d * Rs:(d + 1) * Rs]
-            if len(block) < Rs:  # the tail shard: PAD rows up to Rs
-                block = np.concatenate([block, np.full((Rs - len(block), L), enc.PAD, np.int32)])
-            shard_rows.append(_host_tensor(block).to(self._grid[d, 0]))
+        shard_rows = self._shard_rows(rows)
 
         if flist is None:
-            hists = [item_histogram(r, n_bins=n_items, backend=cfg.backend) for r in shard_rows]
-            supports = _sum_to(hists, self.device).cpu().numpy()
+            supports = self._job1(shard_rows, n_items).cpu().numpy()
             self.stage_counters["job1"] += 1
             fl = enc.build_flist(supports, min_count_floor)
         else:
@@ -577,12 +576,7 @@ class HPrepostMiner:
         W = 0
         if K > 0 and need_waves:
             t0 = time.perf_counter()
-            lut = torch.from_numpy(fl.rank_lut())
-            ranked, trees = [], []
-            for d, r in enumerate(shard_rows):
-                ranked.append(enc.rank_encode_torch(r, lut.to(r.device), n_items))
-                w = torch.ones(Rs, dtype=torch.int64, device=r.device)
-                trees.append(build_ppc_torch(ranked[d], w, K))
+            ranked, trees = self._job2(shard_rows, torch.from_numpy(fl.rank_lut()), K, n_items)
             self.stage_counters["job2"] += 1
             # W covers the longest N-list of any shard (the reference's pmax)
             longest = [torch.bincount(item, minlength=K).max() for item, *_ in trees]
@@ -594,8 +588,7 @@ class HPrepostMiner:
 
             t0 = time.perf_counter()
             if K > 1:
-                coocs = [cooccurrence_matrix(r, n_items=K, backend=cfg.backend) for r in ranked]
-                C = _sum_to(coocs, self.device).cpu().numpy()
+                C = self._jobf2(ranked, K).cpu().numpy()
                 self.stage_counters["f2"] += 1
             C = np.triu(C, 1)
             stages["f2_scan"] = time.perf_counter() - t0
@@ -608,6 +601,44 @@ class HPrepostMiner:
             stage_times=stages, f1_only=not need_waves, n_shards=D,
             support_ordered=flist is None,
         )
+
+    # -------------------------------------------------- the prep stages
+    # (``prepare`` runs them; ``launch.dryrun_fim`` times and costs each)
+    def _shard_rows(self, rows: np.ndarray) -> list[torch.Tensor]:
+        """Per data shard d, its block of ``ceil(R/D)`` rows (the tail
+        padded with PAD rows) on position (d, 0)."""
+        R0, L = rows.shape
+        Rs = -(-R0 // self.D)
+        rows_c = np.require(rows, np.int32, ["C"])
+        out = []
+        for d in range(self.D):
+            block = rows_c[d * Rs:(d + 1) * Rs]
+            if len(block) < Rs:  # the tail shard: PAD rows up to Rs
+                block = np.concatenate([block, np.full((Rs - len(block), L), enc.PAD, np.int32)])
+            out.append(_host_tensor(block).to(self._grid[d, 0]))
+        return out
+
+    def _job1(self, shard_rows, n_items: int) -> torch.Tensor:
+        """Job 1: each shard's item histogram (B3) on its position, summed
+        on the reduce device."""
+        hists = [item_histogram(r, n_bins=n_items, backend=self.cfg.backend) for r in shard_rows]
+        return _sum_to(hists, self.device)
+
+    def _job2(self, shard_rows, lut: torch.Tensor, K: int, n_items: int):
+        """Job 2: each shard's rows rank-encoded through ``lut`` and its
+        PPC-tree built, on its position. -> (ranked rows, trees) a shard."""
+        ranked, trees = [], []
+        for r in shard_rows:
+            ranked.append(enc.rank_encode_torch(r, lut.to(r.device), n_items))
+            w = torch.ones(r.shape[0], dtype=torch.int64, device=r.device)
+            trees.append(build_ppc_torch(ranked[-1], w, K))
+        return ranked, trees
+
+    def _jobf2(self, ranked, K: int) -> torch.Tensor:
+        """F2: each shard's (K, K) co-occurrence matrix (B4) on its
+        position, summed on the reduce device."""
+        coocs = [cooccurrence_matrix(r, n_items=K, backend=self.cfg.backend) for r in ranked]
+        return _sum_to(coocs, self.device)
 
     # ---------------------------------------------------------------- waves
     def _pack_wave(self, ranks, parents, qarr, level: int = 2, slots_per_shard: int = 0):
@@ -657,6 +688,9 @@ class HPrepostMiner:
     def _position_planes(self, shard_planes) -> list[list[torch.Tensor]]:
         """``[d][g]``: shard d's planes on position (d, g)'s device (a copy
         only where that is another device than the shard's)."""
+        for d in range(self.D):
+            nb = shard_planes[d].numel() * shard_planes[d].element_size()
+            cost.collective("collective-permute", nb * (self._Mb - 1), nb * (self._Mb - 1))
         return [[shard_planes[d].to(self._grid[d, g]) for g in range(self._Mb)]
                 for d in range(self.D)]
 
@@ -698,13 +732,15 @@ class HPrepostMiner:
                     state = prev[d][g]
                 else:
                     if (d, dev) not in gathered:
+                        away = sum(prev[d][j].numel() * 4 for j in range(Mb) if j != g)
+                        cost.collective("all-gather", away, away)  # the shuffle's parent rows
                         blocks = [prev[d][j].to(dev) for j in range(Mb)]
                         gathered[d, dev] = blocks[0] if Mb == 1 else torch.cat(blocks)
                     state = gathered[d, dev]
                 new[d][g], sup = self._wave(planes[d][g], state, on_dev[g, dev], int(live[g]),
                                             stop_count, plan)
                 parts[g].append(sup)
-        return new, [_sum_to(p, self.device) for p in parts]
+        return new, [_sum_to(p, self.device, first_local=g == 0) for g, p in enumerate(parts)]
 
     @staticmethod
     def _extensions(ranks, slots, pair_packed, prefix_packed, k_items):

@@ -2,7 +2,8 @@
 (``csrc/cooccur.cu``), which replaces the TPU kernel
 ``repro/kernels/cooccur/kernel.py:_cooc_kernel``. CPU tensors take the
 plain version (``ref.py``); CUDA tensors launch the kernel, counted in
-``cooccur_cuda.launches``."""
+``cooccur_cuda.launches``. Either route charges ``ops.cooccur_cost`` to an
+active cost recorder."""
 from __future__ import annotations
 
 import ctypes
@@ -11,11 +12,19 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.cooccur.ref import cooccur_ref
+from repro_torch.launch import cost
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"cooccur_launch": [_P, _P, _LL, _I, _I, _P, _P]}
 
 
+def _cost(rows, weights, *, n_items):
+    from repro_torch.kernels.cooccur.ops import cooccur_cost
+
+    return cooccur_cost(rows, weights, n_items=n_items)
+
+
+@cost.charged(_cost)
 def cooccur_cuda(rows: torch.Tensor, weights: torch.Tensor, *, n_items: int) -> torch.Tensor:
     """(K, K) weighted co-occurrence counts (full symmetric, diag = support)
     over rank rows (R, L) int32 (PAD = -1), weights (R,) int32."""

@@ -2,7 +2,8 @@
 (``csrc/histogram.cu``), which replaces the TPU kernel
 ``repro/kernels/histogram/kernel.py:_hist_kernel``. CPU tensors take the
 plain version (``ref.py``); CUDA tensors launch the kernel, counted in
-``histogram_cuda.launches``."""
+``histogram_cuda.launches``. Either route charges ``ops.histogram_cost``
+to an active cost recorder."""
 from __future__ import annotations
 
 import ctypes
@@ -11,11 +12,19 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.histogram.ref import histogram_ref
+from repro_torch.launch import cost
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"histogram_launch": [_P, _P, _LL, _I, _I, _P, _P]}
 
 
+def _cost(rows, weights, *, n_bins):
+    from repro_torch.kernels.histogram.ops import histogram_cost
+
+    return histogram_cost(rows, weights, n_bins=n_bins)
+
+
+@cost.charged(_cost)
 def histogram_cuda(rows: torch.Tensor, weights: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """Weighted transaction-count histogram: rows (R, L) int32 (PAD = -1),
     weights (R,) int32 -> (n_bins,) int32."""

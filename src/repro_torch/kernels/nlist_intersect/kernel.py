@@ -15,7 +15,8 @@ Each takes its plain version (``ref.py``) for CPU tensors and launches the
 kernel for CUDA tensors. Launches count on ``nlist_intersect_cuda.launches``
 (B1) and ``nlist_intersect_es_cuda.launches`` (B2), whichever entry made
 them. Counts accumulate in int32 and are exact below 2^31 (the miner guards
-the row count against that bound)."""
+the row count against that bound). Either route charges ``ops.wave_cost``
+(the wave entry) or ``ops.intersect_cost`` to an active cost recorder."""
 from __future__ import annotations
 
 import ctypes
@@ -28,6 +29,7 @@ from repro_torch.kernels.nlist_intersect.ref import (
     nlist_intersect_masked_ref,
     nlist_wave_ref,
 )
+from repro_torch.launch import cost
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -63,6 +65,25 @@ def _check(a_pre, a_post, y_pre, y_post, y_cnt, a_cnt=None):
     return B, La, Ly
 
 
+def _wave_cost(*args, **kw):
+    from repro_torch.kernels.nlist_intersect.ops import wave_cost
+
+    return wave_cost(*args, **kw)
+
+
+def _b1_cost(a_pre, a_post, y_pre, *args):
+    from repro_torch.kernels.nlist_intersect.ops import intersect_cost
+
+    return intersect_cost(a_pre, y_pre)
+
+
+def _b2_cost(a_pre, a_post, a_cnt, y_pre, *args, **kw):
+    from repro_torch.kernels.nlist_intersect.ops import intersect_cost
+
+    return intersect_cost(a_pre, y_pre, a_cnt=True)
+
+
+@cost.charged(_b1_cost)
 def nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt):
     """B1: ``(merged (B, La) int32, supports (B,) int32)``. Both lists must
     be pre-ascending (N-lists are), padding pre=INT32_MAX, post=-1, cnt=0."""
@@ -74,6 +95,7 @@ def nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt):
     return _launch(False, ptrs, B, La, Ly, B, La, 0, a_pre.device)
 
 
+@cost.charged(_b2_cost)
 def nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_count, *,
                             la_block=512):
     """B2: B1 with tile-order early stop at ``min_count`` (see
@@ -87,6 +109,7 @@ def nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_coun
     return _launch(True, ptrs, B, La, Ly, B, la_block, min_count, a_pre.device)
 
 
+@cost.charged(_wave_cost)
 def nlist_wave_cuda(planes, prev_state, idx, n_live, *, early_stop=False, min_count=0,
                     la_block=512):
     """One wave, gather fused: candidate ``b < n_live`` intersects extension

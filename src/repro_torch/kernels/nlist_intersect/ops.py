@@ -19,8 +19,13 @@ Exactness bound: the CUDA kernels accumulate counts in int32, exact below
 transaction count, so ``HPrepostMiner.prepare`` refuses row counts at or
 above it before any wave runs. (The reference's Pallas kernels accumulate
 in fp32 and are bounded at 2^24 instead.)
+
+``wave_cost`` and ``intersect_cost`` count one launch's work for the
+roofline (``repro_torch.launch.cost``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +81,71 @@ def nlist_wave(
     check_backend(resolve_backend(backend, planes.device.type), planes)
     return nlist_wave_cuda(planes, prev_state, idx, n_live, early_stop=early_stop,
                            min_count=min_count, la_block=la_block)
+
+
+def wave_cost(planes: torch.Tensor, state: torch.Tensor, idx: torch.Tensor, n_live: int, *,
+              early_stop: bool = False, min_count: int = 0, la_block: int = 512) -> tuple[int, int]:
+    """(bytes, scalar operations) of one ``nlist_wave`` launch, as far as
+    this wave's data needs them, each input read once and each output
+    written once.
+
+    Padding is a suffix and merges nothing, so candidate b needs its A
+    pre/post (extension item's row) up to slot p_b: under early stop
+    (B2) its first dead slot (``ref.first_dead_slot`` on B1's exact rows),
+    else its valid length; under early stop also its A counts up to the
+    valid length (the liveness rule needs their suffix mass). It needs the
+    counts (parent's state row) of the Y codes whose only possible ancestor
+    lies before p_b, and their pre/post (base item's row) where the count is
+    nonzero. A row that several candidates read counts once, as does
+    ``planes[2]`` when ``state`` is that plane. Every slot's merged row and
+    support is written, and the live index columns are read. Each nonzero Y
+    code costs a binary search over the W slots plus two updates."""
+    from repro_torch.kernels.nlist_intersect.ref import first_dead_slot, nlist_wave_ref
+
+    K, W = planes.shape[1], planes.shape[2]
+    B = idx.shape[1]
+    live = idx[:, :n_live]
+    stop = None
+    if early_stop:
+        exact = nlist_wave_ref(planes, state, idx, n_live)[0][:n_live]
+        stop = first_dead_slot(exact, planes[2][live[2]], min_count, la_block)
+    pad = torch.iinfo(torch.int32).max
+    lens = (planes[0] != pad).sum(1)
+    na, ny = lens[live[2]], lens[live[1]]
+    a_pre, y_pre = planes[0][live[2]], planes[0][live[1]]
+    p = na if stop is None else torch.minimum(stop.to(na.dtype), na)
+    # Y codes with y_pre <= a_pre[p] have their ancestor before slot p
+    top = a_pre.gather(1, p.clamp(max=W - 1)[:, None])[:, 0]
+    thr = torch.where(p < na, top, pad)
+    my = torch.minimum(torch.searchsorted(y_pre, thr[:, None].contiguous(), right=True)[:, 0], ny)
+    cols = torch.arange(W, device=idx.device)
+    y_need = cols < my[:, None]
+    y_nz = (state[live[0]] != 0) & y_need
+
+    def union(n_rows, rows, mask):  # (n_rows, W): slots some candidate needs
+        hits = torch.zeros((n_rows, W), dtype=torch.int32, device=idx.device)
+        return hits.index_add_(0, rows, mask.to(torch.int32)) > 0
+
+    pre_post = union(K, live[2], cols < p[:, None]) | union(K, live[1], y_nz)
+    counts = union(state.shape[0], live[0], y_need)
+    a_cnt = union(K, live[2], cols < na[:, None]) if stop is not None else torch.zeros_like(pre_post)
+    if state.data_ptr() == planes[2].data_ptr() and state.shape == planes[2].shape:
+        n_cnt = int((counts | a_cnt).sum())
+    else:
+        n_cnt = int(counts.sum()) + int(a_cnt.sum())
+    n = 8 * int(pre_post.sum()) + 4 * n_cnt + B * W * 4 + B * 4 + 3 * n_live * 8
+    nz = int(y_nz.sum())
+    return n, nz * (math.ceil(math.log2(W)) + 2)
+
+
+def intersect_cost(a_pre: torch.Tensor, y_pre: torch.Tensor, *, a_cnt: bool = False) -> tuple[int, int]:
+    """(bytes, scalar operations) of one ``nlist_intersect`` launch on rows
+    the caller gathered: each of them read whole once (A pre/post, with
+    ``a_cnt`` its counts, and Y pre/post/counts), the merged rows and
+    supports written once, and for every valid Y code a binary search over
+    La slots plus two updates."""
+    B, La = a_pre.shape
+    Ly = y_pre.shape[1]
+    n = B * La * 4 * (3 if a_cnt else 2) + B * Ly * 4 * 3 + B * La * 4 + B * 4
+    ny = int((y_pre != torch.iinfo(torch.int32).max).sum())
+    return n, ny * (math.ceil(math.log2(max(La, 2))) + 2)

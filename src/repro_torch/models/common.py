@@ -8,8 +8,10 @@ trees for weights and caches (``init_params``), parameter counts
 (``n_params``), and a mesh's ``PartitionSpec`` and ``NamedSharding`` trees
 (``param_specs_pspec``, ``param_shardings``, over
 ``repro_torch.sharding.MeshRules``; ``models/convert.py`` maps their stacked
-leaves to a ``state_dict``'s keys). The reference's ``abstract_params``
-(``jax.ShapeDtypeStruct`` stand-ins for the XLA dry-run) has no counterpart.
+leaves to a ``state_dict``'s keys), and the dry-run's allocation-free
+stand-ins (``abstract_params``: a meta-device tensor and its
+``NamedSharding`` a leaf, the counterpart of ``jax.ShapeDtypeStruct(...,
+sharding=)``) with their per-device bytes (``bytes_per_device``).
 """
 from __future__ import annotations
 
@@ -127,3 +129,49 @@ def param_shardings(tree, rules) -> dict:
 def param_specs_pspec(tree, rules) -> dict:
     """The ``PartitionSpec`` of every leaf of a ParamSpec tree."""
     return tree_map(lambda s: rules.spec(s.axes, s.shape), tree)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AbstractTensor:
+    """A leaf of the dry-run: a meta-device tensor (shape and dtype, no
+    memory) and the ``NamedSharding`` the mesh would hold it under."""
+
+    tensor: torch.Tensor
+    sharding: Any = None
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.tensor.shape)
+
+
+def abstract_params(tree, rules, dtype_override=None) -> dict:
+    """An ``AbstractTensor`` for every leaf of a ParamSpec tree, sharded by
+    ``rules`` (a ``MeshRules``). Allocates nothing."""
+
+    def one(spec: ParamSpec) -> AbstractTensor:
+        t = torch.empty(spec.shape, dtype=dtype_override or spec.dtype, device="meta")
+        return AbstractTensor(t, rules.sharding(spec.axes, spec.shape))
+
+    return tree_map(one, tree)
+
+
+def bytes_per_device(abstract_tree, mesh) -> int:
+    """Exact per-device bytes of a sharded ``AbstractTensor`` tree: a leaf's
+    bytes over the product of the mesh extents its spec splits it on."""
+    def leaves(t):
+        if isinstance(t, (tuple, list)):
+            return [leaf for x in t for leaf in leaves(x)]
+        return [leaf for leaf in tree_leaves(t) if leaf is not None]
+
+    total = 0
+    for leaf in leaves(abstract_tree):
+        n = math.prod(leaf.shape)
+        shards = 1
+        spec = leaf.sharding.spec if leaf.sharding is not None else ()
+        for entry in spec:
+            if entry is None:
+                continue
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                shards *= mesh.shape[ax]
+        total += n * leaf.tensor.element_size() // shards
+    return total

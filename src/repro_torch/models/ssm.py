@@ -4,13 +4,15 @@ The JAX package's ``models/ssm.py`` in plain PyTorch, chunk for chunk:
 prefill runs the chunked forms (quadratic within a chunk, a loop over chunks
 carrying the recurrent state) with the reference's chunk sizes and asserts;
 decode is the O(1)/token recurrent update. Each ``lax.scan`` is a Python
-loop over the same steps.
+loop over the same steps; the sLSTM's steps run through ``launch.cost.scan``,
+which the dry-run's abstract trace folds to one step charged S times.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import cost
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import NEG, ein, mm, remat, rmsnorm, rmsnorm_spec
 
@@ -281,6 +283,22 @@ def slstm_specs(cfg) -> dict:
     }
 
 
+def _slstm_step(carry, xt, wx, r, b, n_floor):
+    """One sLSTM step: the gates from the input and the recurrent state,
+    exponential gating with the stabilizer m."""
+    c, n, m, h = carry
+    gx = ein("bd,dghk->bghk", xt, wx).float()
+    rec = torch.einsum("bhk,ghkl->bghl", h, r)
+    zt, it, ft, ot = (gx[:, g] + rec[:, g] + b[g][None] for g in range(4))
+    mt = torch.maximum(ft + m, it)
+    ip = torch.exp(it - mt)
+    fp = torch.exp(ft + m - mt)
+    ct = fp * c + ip * torch.tanh(zt)
+    nt = fp * n + ip
+    ht = torch.sigmoid(ot) * ct / torch.maximum(nt, n_floor)
+    return (ct, nt, mt, ht), ht
+
+
 def slstm_chunk_len(S: int) -> int:
     """The reference's sLSTM chunk: 64 or 32 steps where S divides, else S
     (one flat scan)."""
@@ -312,24 +330,8 @@ def slstm(p, x: torch.Tensor, cfg, state: dict | None = None, single_step: bool 
     wx = p["wx"].to(x.dtype)
     n_floor = torch.full((), 1e-6, device=dev)  # torch.maximum: a tie splits its gradient, as jnp.maximum
 
-    def step(carry, xt):
-        c, n, m, h = carry
-        gx = ein("bd,dghk->bghk", xt, wx).float()
-        rec = torch.einsum("bhk,ghkl->bghl", h, r)
-        zt, it, ft, ot = (gx[:, g] + rec[:, g] + b[g][None] for g in range(4))
-        mt = torch.maximum(ft + m, it)
-        ip = torch.exp(it - mt)
-        fp = torch.exp(ft + m - mt)
-        ct = fp * c + ip * torch.tanh(zt)
-        nt = fp * n + ip
-        ht = torch.sigmoid(ot) * ct / torch.maximum(nt, n_floor)
-        return (ct, nt, mt, ht), ht
-
     def chunk(carry, xc):  # xc (B, Q, d)
-        hs = []
-        for t in range(xc.shape[1]):
-            carry, ht = step(carry, xc[:, t])
-            hs.append(ht)
+        carry, hs = cost.scan(_slstm_step, carry, xc.unbind(1), (wx, r, b, n_floor))
         return carry, torch.stack(hs, dim=1)
 
     # the reference scans S/Q chunks of Q steps (Q = 64 or 32), or all S

@@ -13,6 +13,9 @@ splits a tensor into the blocks the mesh positions hold (``Sharded``), and
 reassembles them. The reference lets XLA keep a copy of a replicated block
 on every device that holds it; the port stores each distinct block once, on
 the device of the first position (in row-major mesh order) that holds it.
+Splitting a whole tensor sends its blocks out from the first position, and
+reassembling one gathers them there: both charge an active cost recorder
+(``repro_torch.launch.cost``) the bytes that leave a position.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.launch import cost
 from repro_torch.launch.mesh import Mesh
 
 # logical axis -> preferred mesh axes (tried in order; tuple entries combine)
@@ -76,6 +80,9 @@ class Sharded:
         """The whole tensor on ``device`` (the first block's by default)."""
         first = next(iter(self.blocks.values()))
         out = torch.empty(self.shape, dtype=first.dtype, device=device if device is not None else first.device)
+        away = sum(b.numel() * b.element_size() for c, b in self.blocks.items() if any(c))
+        if away:
+            cost.collective("all-gather", out.numel() * out.element_size(), away)
         for c, s in self.sharding.slices(self.shape).items():
             out[s] = self.blocks[c].to(out.device)
         return out
@@ -124,6 +131,9 @@ class NamedSharding:
         where = self.placement()
         blocks = {c: t[s].to(where[c], copy=True, memory_format=torch.contiguous_format)
                   for c, s in self.slices(tuple(t.shape)).items()}
+        away = sum(b.numel() * b.element_size() for c, b in blocks.items() if any(c))
+        if away:
+            cost.collective("collective-permute", away, away)
         return Sharded(self, tuple(t.shape), blocks)
 
 

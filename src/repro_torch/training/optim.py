@@ -18,6 +18,11 @@ updates each block in place from the matching slice of the gradient and
 the parameter, which stay whole on the mesh's first device. AdamW is
 elementwise and the clip's global norm is taken over the whole gradients,
 so the result is the one-device update bit for bit.
+
+Under an active cost recorder (``repro_torch.launch.cost``) each block's
+update is charged to the position holding it, and the gradient and
+parameter slices it reads from the first position, and the update it sends
+back there, as point-to-point moves (``collective-permute``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.launch import cost
 from repro_torch.models.common import ParamSpec, tree_map
 from repro_torch.sharding.rules import Sharded
 
@@ -107,7 +113,7 @@ def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict, mom
         g = grads[k].float().mul_(scale)
         sh = moment_shardings.get(k) if moment_shardings else None
         if sh is None:
-            parts = [((), opt_state["m"][k], opt_state["v"][k])]
+            parts = [((), (), opt_state["m"][k], opt_state["v"][k])]
         else:
             for name in ("m", "v"):
                 mom = opt_state[name][k]
@@ -115,14 +121,19 @@ def adamw_update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict, mom
                     whole = mom.full(p.device) if isinstance(mom, Sharded) else mom
                     opt_state[name][k] = sh.split(whole)
             m, v = opt_state["m"][k], opt_state["v"][k]
-            parts = [(s, m.blocks[c], v.blocks[c]) for c, s in sh.slices(tuple(p.shape)).items()]
-        for s, m, v in parts:
+            parts = [(c, s, m.blocks[c], v.blocks[c]) for c, s in sh.slices(tuple(p.shape)).items()]
+        for c, s, m, v in parts:
             dev = m.device
-            gs = g[s].to(dev)
-            m.mul_(b1).add_((1 - b1) * gs)
-            v.mul_(b2).add_((1 - b2) * gs * gs)
-            delta = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + cfg.eps) + cfg.weight_decay * p[s].float().to(dev)
-            upd = (lr.to(dev) * delta).to(p.device)
+            with cost.at(c):
+                gs = g[s].to(dev)
+                m.mul_(b1).add_((1 - b1) * gs)
+                v.mul_(b2).add_((1 - b2) * gs * gs)
+                ps = p[s].float().to(dev)
+                delta = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + cfg.eps) + cfg.weight_decay * ps
+                upd = lr.to(dev) * delta
+                if any(c):  # g and p slices in, the update out: the block lies elsewhere
+                    cost.collective("collective-permute", 3 * gs.numel() * 4, 3 * gs.numel() * 4)
+            upd = upd.to(p.device)
             if p.dtype == torch.float32:
                 p[s].sub_(upd)
             else:

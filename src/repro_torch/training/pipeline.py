@@ -13,10 +13,17 @@ clamped microbatch or a zero buffer, and its result is dropped), the port's
 skip the ticks whose result would be dropped; the outputs are the same.
 Only the last stage's outputs are returned, on its device, where the
 reference broadcasts them to every stage with a masked ``psum``.
+
+Under an active cost recorder (``repro_torch.launch.cost``) each stage's
+work is charged to its position, and the stage slices of the parameters
+and the hand-offs to the next stage as point-to-point moves
+(``collective-permute``, the reference's ``ppermute``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.launch import cost
 
 
 def _tree_map(fn, tree):
@@ -56,10 +63,14 @@ def gpipe_forward(layer_fn, stacked_params, x: torch.Tensor, *, mesh, axis: str 
         [mesh.axis_names.index(axis)] + [i for i, a in enumerate(mesh.axis_names) if a != axis]
     ).reshape(S, -1)[:, 0]
     stages = [_tree_map(lambda t, s=s: t[s * per:(s + 1) * per].to(devices[s]), stacked_params) for s in range(S)]
+    for s in range(1, S):
+        nb = sum(t.numel() * t.element_size() for t in _leaves(stages[s]))
+        cost.collective("collective-permute", nb, nb)
 
     def run_stage(s: int, h: torch.Tensor) -> torch.Tensor:
-        for i in range(per):
-            h = layer_fn(_tree_map(lambda t: t[i], stages[s]), h)
+        with cost.at((s,)):
+            for i in range(per):
+                h = layer_fn(_tree_map(lambda t: t[i], stages[s]), h)
         return h
 
     outs = [None] * n_micro
@@ -75,5 +86,7 @@ def gpipe_forward(layer_fn, stacked_params, x: torch.Tensor, *, mesh, axis: str 
                 outs[mb] = h  # the last stage emits microbatch t - (S - 1)
             else:
                 nxt[s + 1] = h.to(devices[s + 1])  # hand the activation to the next stage
+                cost.collective("collective-permute", h.numel() * h.element_size(),
+                                h.numel() * h.element_size())
         buf = nxt
     return torch.stack(outs)

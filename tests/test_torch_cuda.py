@@ -868,3 +868,53 @@ def test_lm_mesh_training_on_card(cuda):
     want = compressed_psum(shards, noise)
     got = compressed_psum([s.to(cuda) for s in shards], [n.to(cuda) for n in noise])
     assert torch.equal(got.cpu(), want)
+
+
+def test_dryrun_fim_on_card(cuda, tmp_path, monkeypatch):
+    """``launch.dryrun_fim`` at --scale 0.01 on the card: every kernel
+    launches, and each stage's outputs equal the same stage run with the
+    plain kernel versions on the card."""
+    import repro_torch.core.hprepost as hp
+    import repro_torch.kernels as K
+    from repro_torch.launch import dryrun_fim
+
+    K.reset_launches()
+    outputs = {}
+    dryrun_fim.run(None, "1x1", R=10_485, C=256, device="cuda", out_dir=str(tmp_path), reps=1,
+                   outputs=outputs)
+    assert all(n > 0 for n in K.launches().values()), K.launches()
+
+    def ones(r):
+        return torch.ones(r.shape[0], dtype=torch.int32, device=r.device)
+
+    monkeypatch.setattr(hp, "item_histogram", lambda r, n_bins, backend=None: histogram_ref(r, ones(r), n_bins=n_bins))
+    monkeypatch.setattr(hp, "cooccurrence_matrix",
+                        lambda r, n_items, backend=None: cooccur_ref(r, ones(r), n_items=n_items))
+    monkeypatch.setattr(hp, "nlist_wave", lambda planes, prev, idx, n_live, backend=None, la_block=512,
+                        early_stop=False, min_count=0: nlist_wave_ref(
+                            planes, prev, idx, n_live, early_stop=early_stop, min_count=min_count,
+                            la_block=la_block))
+
+    def same(got, want):
+        if isinstance(got, (list, tuple)):
+            return len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+        return got.dtype == want.dtype and torch.equal(got, want)
+
+    for name in dryrun_fim.STAGES:
+        assert same(outputs[name], outputs["stages"][name]()), name
+
+
+def test_kernel_and_plain_routes_charge_the_same_cost(cuda):
+    """A kernel wrapper charges its cost function's count whichever route it
+    takes: the card's kernel and the CPU's plain version agree."""
+    from repro_torch.launch import cost
+
+    rng = np.random.default_rng(5)
+    rows = rng.integers(-1, 300, size=(5000, 24)).astype(np.int32)
+    w = np.ones(5000, np.int32)
+    for fn, kw in ((histogram_cuda, dict(n_bins=300)), (cooccur_cuda, dict(n_items=300))):
+        charged = []
+        for dev in ("cuda", "cpu"):
+            _, pc = cost.trace(fn, T(rows, dev), T(w, dev), **kw)
+            charged.append((pc.hbm_bytes, pc.flops))
+        assert charged[0] == charged[1], fn.__name__

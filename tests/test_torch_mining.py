@@ -2,6 +2,7 @@
 ``repro.mining.mine`` for every ported miner, the backend registry, the
 one-shot CLI, and import isolation (no JAX, nothing of ``repro``)."""
 import ast
+import math
 import os
 import subprocess
 import sys
@@ -152,7 +153,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     assert len(mods) >= 25
-    assert {"repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.training.pipeline"} <= set(mods)
+    assert {"repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.training.pipeline",
+            "repro_torch.launch.cost", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.dryrun_fim"} <= set(mods)
 
 
 def test_chip_smoke_imports_and_cpu_exit(tmp_path):
@@ -190,13 +193,14 @@ def test_chip_compare_imports_and_cpu_exit():
 
 @pytest.mark.parametrize("stop_mult", [None, 1, 3])
 def test_chip_smoke_wave_bytes_counts_valid_prefixes(stop_mult):
-    """chip_smoke's B1/B2 bound bytes equal a count made slot by slot: the
-    union over candidates of A pre/post up to the stop slot (B2: plus A
-    counts up to the valid length), the Y counts of the codes whose ancestor
-    slot lies before it and their pre/post where nonzero, each row once."""
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import wave_bytes
+    """The B1/B2 bound bytes that chip_smoke prints (``ops.wave_cost``, at
+    la_block 8 here) equal a count made slot by slot: the union over
+    candidates of A pre/post up to the stop slot (B2: plus A counts up to the
+    valid length), the Y counts of the codes whose ancestor slot lies before
+    it and their pre/post where nonzero, each row once; its operations are
+    the nonzero Y codes merged, (log2 W + 2) each."""
     from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner
+    from repro_torch.kernels.nlist_intersect.ops import wave_cost
     from repro_torch.data import synth
     from repro_torch.kernels.nlist_intersect import ref as nl_ref
 
@@ -214,7 +218,8 @@ def test_chip_smoke_wave_bytes_counts_valid_prefixes(stop_mult):
     if stop_mult:
         exact = nl_ref.nlist_wave_ref(planes, state, idx, n_live)[0][:n_live]
         stop = nl_ref.first_dead_slot(exact, planes[2][live[2]], stop_mult * mc, 8)
-    got, got_nz = wave_bytes(planes, state, idx, n_live, stop=stop)
+    got, got_ops = wave_cost(planes, state, idx, n_live, early_stop=stop is not None,
+                             min_count=(stop_mult or 0) * mc, la_block=8)
 
     B, W = idx.shape[1], planes.shape[2]
     pad = torch.iinfo(torch.int32).max
@@ -234,6 +239,6 @@ def test_chip_smoke_wave_bytes_counts_valid_prefixes(stop_mult):
             counts |= {(qa, i) for i in range(na)}
         want_nz += int((yc[:my] != 0).sum())
     want = 8 * len(pre_post) + 4 * len(counts) + B * W * 4 + B * 4 + 3 * n_live * 8
-    assert (got, got_nz) == (want, want_nz)
+    assert (got, got_ops) == (want, want_nz * (math.ceil(math.log2(W)) + 2))
     if stop_mult == 3:
         assert int((stop < (planes[0][live[2]] != pad).sum(1)).sum()) > 0  # some die early

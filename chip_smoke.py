@@ -8,8 +8,15 @@ Phases, in order; any failure raises and exits non-zero:
      for sm_90a (one process per source, all at once);
   3. kernels: each kernel at the main path's shapes, held to exact equality
      with its plain PyTorch version on the card, and timed beside it (and
-     beside one PyTorch library call where one computes the same function);
-     B1/B2 through the wave entry the miner calls, B4 also on a weighted,
+     beside one PyTorch library call where one computes the same function:
+     for B4 the weighted one-hot product, and with all weights 1 its exact
+     bf16 and int8 tensor-core forms, ``cooccur_library``);
+     B1/B2 through the wave entry the miner calls, then held to the padding
+     contract on soiled padding slots (``padding_contract``: parent states
+     of 0-4, count + 1 and counts on padding only, A counts on padding, B2
+     at three min_counts x la_block 128/256/512, 256- and 1,024-thread
+     blocks) at the mushroom level-2 wave and at a 1,024 x W 512 wave on
+     Job 2's production N-lists (``fim_wave``); B4 also on a weighted,
      repeated-item case at pumsb's shape, B3 on every dataset's rows and on
      the cases the main path does not reach (``hist_cases``);
   4. end to end: one-shot hprepost mines (on the card, full dataset scale)
@@ -279,6 +286,122 @@ def level2_wave(miner, prep, min_count):
     idx, _, _ = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
     planes = prep.packed[0].permute(2, 0, 1).contiguous()
     return planes, planes[2], torch.from_numpy(idx).cuda(), len(ranks)
+
+
+def fim_wave(dev, C: int = 1024):
+    """A wave of C candidates on Job 2's real N-lists at the reference's
+    production scale, as ``launch.dryrun_fim`` builds it (1,048,576 × 48
+    Zipf rows, K = 2,048, W = 512; C cut from 8,192): -> (planes (3, K, W),
+    the parents' state (C, W) drawn below each code's count, the shuffle
+    wave's (3, C) index rows, C, its early-stop threshold)."""
+    from repro_torch.launch import dryrun_fim
+
+    outputs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        dryrun_fim.run(None, "1x1", C=C, device=dev, out_dir=out_dir, reps=1, outputs=outputs)
+    inp = outputs["inputs"]
+    return (torch.from_numpy(inp["planes"][0]).to(dev), torch.from_numpy(inp["state"][0]).to(dev),
+            torch.from_numpy(np.ascontiguousarray(inp["idx_shuffle"])).to(dev), inp["C"], inp["stop"])
+
+
+def padding_contract(K, nl_ref, label, planes, state, idx, n_live, stops, gen) -> int:
+    """B1 and B2 through the wave entry, held to their plain versions (max
+    abs error 0) on one wave's real N-lists with soiled padding slots (pre
+    INT32_MAX). Parent states: the in-contract one, 0-4 on every slot, each
+    code's count + 1, and the in-contract one with counts on padding slots
+    only; each with the clean planes and with planes whose padding slots
+    carry posts and counts (A's counts weigh in B2's liveness mass). Under
+    the padding contract the in-contract state and the padding-only one
+    give the in-contract answer with either planes. B1, and B2 at ``stops``
+    x la_block 128, 256 and 512, each at ``n_live`` candidates (>= 4 a SM:
+    256-thread blocks) and at 2 a SM (1,024-thread blocks), so every
+    instantiation the launcher picks at this width runs. -> comparisons."""
+    INF = torch.iinfo(torch.int32).max
+    sms = torch.cuda.get_device_properties(planes.device).multi_processor_count
+    few = 2 * sms
+    if not n_live >= 4 * sms > few:
+        raise AssertionError(f"{label}: {n_live} candidates do not reach 4 a SM ({4 * sms})")
+    live = idx[:, :n_live]
+    row_pre = torch.full_like(state, INF)  # a state row lies on its base item's code slots
+    row_pre[live[0]] = planes[0][live[1]]
+    row_cnt = torch.zeros_like(state)
+    row_cnt[live[0]] = planes[2][live[1]]
+
+    def draw(lo, hi, like):
+        return torch.randint(lo, hi, like.shape, generator=gen, device=like.device, dtype=torch.int32)
+
+    states = {
+        "in-contract state": state,
+        "0-4 on every slot": draw(0, 5, state),
+        "each code's count + 1": row_cnt + 1,
+        "counts on padding only": torch.where(row_pre == INF, draw(1, 1000, state), state),
+    }
+    soiled = planes.clone()
+    pad = planes[0] == INF
+    soiled[1] = torch.where(pad, draw(-1, 16, pad), planes[1])
+    soiled[2] = torch.where(pad, draw(1, 1000, pad), planes[2])
+    kws = [{}] + [dict(early_stop=True, min_count=s, la_block=lab) for s in stops for lab in (128, 256, 512)]
+    n = 0
+    for nl in (n_live, few):
+        for kw in kws:
+            contract = nl_ref.nlist_wave_ref(planes, state, idx, nl, **kw)
+            for sname, st in states.items():
+                for pname, pl in (("clean planes", planes), ("soiled planes", soiled)):
+                    what = (f"{'nlist_intersect_es' if kw else 'nlist_intersect'} {label}: {sname}, "
+                            f"{pname}, n_live {nl}{', ' + str(kw) if kw else ''}")
+                    got = K.nlist_wave_cuda(pl, st, idx, nl, **kw)
+                    assert_equal(what, got, nl_ref.nlist_wave_ref(pl, st, idx, nl, **kw))
+                    if sname in ("in-contract state", "counts on padding only"):
+                        assert_equal(what + ", against the in-contract answer", got, contract)
+                    n += 1
+    return n
+
+
+def cooccur_library(ranked, w, k, want, timing=None, reps: int = 10) -> dict:
+    """B4's yardstick: PyTorch calls that compute its function,
+    C = X^T diag(w) X with X[r, i] the count of item i in row r, on the same
+    inputs (X built outside the timing), each held equal to the kernel's
+    ``want`` (exact while every sum stays below 2^24). ``library_ms`` is
+    the weighted fp32 product; where every weight is 1, on the card, the
+    exact tensor-core forms are timed beside it: a bf16 one-hot with fp32
+    accumulation, and ``torch._int_mm`` on an int8 one-hot with int32
+    accumulation (rows and items padded with zeros to multiples of 8)."""
+    timing = timing or time_ms
+    R = ranked.shape[0]
+    X = torch.zeros((R, k + 1), dtype=torch.float32, device=ranked.device)
+    X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
+    X = X[:, :k].contiguous()
+    wf = w.to(torch.float32)[:, None]
+
+    def fp32():
+        return (X * wf).T @ X
+
+    assert_equal("cooccur library fp32", (fp32().to(torch.int32),), (want,))
+    out = dict(library_ms=timing(fp32, reps=reps),
+               library_call="weighted one-hot fp32 matmul (X * w[:, None]).T @ X (one-hot built outside the timing)")
+    if not (X.is_cuda and bool((w == 1).all())):
+        return out
+    Xb = X.to(torch.bfloat16)
+    del X
+
+    def bf16():
+        return torch.mm(Xb.T, Xb, out_dtype=torch.float32)
+
+    assert_equal("cooccur library bf16", (bf16().to(torch.int32),), (want,))
+    out["bf16_ms"] = timing(bf16, reps=reps)
+    k8, R8 = -(-k // 8) * 8, -(-R // 8) * 8
+    X8t = torch.zeros((k8, R8), dtype=torch.int8, device=ranked.device)  # row-major X^T
+    X8t[:k, :R] = Xb.T
+    del Xb
+
+    def int8():
+        return torch._int_mm(X8t, X8t.T)  # (k8, R8) row-major by (R8, k8) column-major
+
+    assert_equal("cooccur library int8", (int8()[:k, :k],), (want,))
+    out["int8_ms"] = timing(int8, reps=reps)
+    out["tensor_core_calls"] = ("bf16_ms: torch.mm(Xb.T, Xb, out_dtype=float32) on a bf16 one-hot; int8_ms: "
+                                "torch._int_mm on an int8 one-hot (int32 sums); both exact below 2^24")
+    return out
 
 
 def host_answer(data, host, name, min_count):
@@ -944,19 +1067,15 @@ def stream_phase(K, data, host, smi: str):
         R, L = ranked.shape
         nb, pairs = cooccur_cost(ranked, wr, n_items=seg.k)
         b, by = bound_ms(nb, pairs)
-        X = torch.zeros((R, seg.k + 1), dtype=torch.float32, device=dev)
-        X.scatter_add_(1, torch.where(ranked >= 0, ranked, seg.k).long(),
-                       torch.ones_like(ranked, dtype=torch.float32))
-        X = X[:, :seg.k].contiguous()
         cooc = dict(shape=f"pumsb stream segment: ranked rows {R}x{L}, K={seg.k}, {pairs} pair "
                           f"updates", max_abs_err=err,
                     ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=seg.k)),
                     plain_ms=time_ms(lambda: cooc_ref.cooccur_ref(ranked, wr, n_items=seg.k),
                                      reps=2),
-                    library_ms=time_ms(lambda: X.T @ X, reps=3),
-                    library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+                    **cooccur_library(ranked, wr, seg.k, K.cooccur_cuda(ranked, wr, n_items=seg.k),
+                                      reps=3),
                     bound_ms=b, bound_by=by)
-        del ranked, wr, lut, X
+        del ranked, wr, lut
         h = psm.db.handles()[0]
         planes, single = h.planes[0], h.singleton[0]  # the one data shard
         qs, ps = np.nonzero(C >= mc)
@@ -980,7 +1099,8 @@ def stream_phase(K, data, host, smi: str):
                                                                    n_live), reps=2),
                     library_ms=None, bound_ms=b, bound_by=by)
         log(f"  B4 equal to its plain version at a pumsb segment (K={seg.k}): {cooc['ms']:.4f}ms "
-            f"against plain {cooc['plain_ms']:.2f}ms, one-hot X^T X {cooc['library_ms']:.2f}ms, "
+            f"against plain {cooc['plain_ms']:.2f}ms, weighted one-hot fp32 {cooc['library_ms']:.2f}ms "
+            f"(bf16 {cooc['bf16_ms']:.2f}, int8 {cooc['int8_ms']:.2f}), "
             f"bound {cooc['bound_ms']:.4f}ms; B1 equal at "
             f"its level-2 wave: {wave['ms']:.4f}ms against plain {wave['plain_ms']:.2f}ms, bound "
             f"{wave['bound_ms']:.4f}ms [{smi}]")
@@ -2605,19 +2725,15 @@ def dryrun_phase(smi: str, K, dev="cuda", scale: float = 1.0, sweep_mesh: str = 
     k = inp["K"]
     nb, pairs = cooccur_cost(ranked, w1, n_items=k)
     b, by = bound_ms(nb, pairs)
-    X = torch.zeros((ranked.shape[0], k + 1), dtype=torch.float32, device=dev)
-    X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
-    X = X[:, :k].contiguous()
+    cooc = K.cooccur_cuda(ranked, w1, n_items=k)
     entries["cooccur"] = dict(
         shape=f"ranked rows {tuple(ranked.shape)}, K={k}, {pairs} pair updates",
-        max_abs_err=assert_equal("cooccur fim", (K.cooccur_cuda(ranked, w1, n_items=k),),
-                                 (cooc_ref.cooccur_ref(ranked, w1, n_items=k),)),
+        max_abs_err=assert_equal("cooccur fim", (cooc,), (cooc_ref.cooccur_ref(ranked, w1, n_items=k),)),
         ms=timing(lambda: K.cooccur_cuda(ranked, w1, n_items=k)),
         plain_ms=timing(lambda: cooc_ref.cooccur_ref(ranked, w1, n_items=k), reps=2),
-        library_ms=timing(lambda: X.T @ X, reps=3),
-        library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+        **cooccur_library(ranked, w1, k, cooc, timing, reps=3),
         bound_ms=b, bound_by=by)
-    del X, valid, flat
+    del cooc, valid, flat
     Cs, W = inp["C"] // inp["Mb"], inp["W"]
     planes = torch.from_numpy(inp["planes"][0]).to(dev)
     state = torch.from_numpy(inp["state"][0]).to(dev)
@@ -2636,8 +2752,9 @@ def dryrun_phase(smi: str, K, dev="cuda", scale: float = 1.0, sweep_mesh: str = 
             plain_ms=timing(lambda: nl_ref.nlist_wave_ref(planes, state, idx, Cs, **kw), reps=3),
             library_ms=None, bound_ms=b, bound_by=by)
     for kname, e in entries.items():
+        tc = "".join(f", {key} {e[key]:.4f} ms" for key in ("bf16_ms", "int8_ms") if key in e)
         log(f"  {kname} at production shapes ({e['shape']}): {e['ms']:.4f} ms against plain "
-            f"{e['plain_ms']:.3f} ms, library {e['library_ms']}, bound {e['bound_ms']:.4f} ms "
+            f"{e['plain_ms']:.3f} ms, library {e['library_ms']}{tc}, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}) [{smi}]")
     del rows_d, w1, ranked, planes, state, idx, runs
     gc.collect()
@@ -2787,9 +2904,6 @@ def main() -> int:
         got = K.cooccur_cuda(ranked, wr, n_items=k)
         want = cooc_ref.cooccur_ref(ranked, wr, n_items=k)
         err = assert_equal(f"cooccur {name}", (got,), (want,))
-        X = torch.zeros((ranked.shape[0], k + 1), dtype=torch.float32, device=dev)
-        X.scatter_add_(1, torch.where(ranked >= 0, ranked, k).long(), torch.ones_like(ranked, dtype=torch.float32))
-        X = X[:, :k].contiguous()
         R, L = ranked.shape
         nb, pairs = cooccur_cost(ranked, wr, n_items=k)
         b, by = bound_ms(nb, pairs)
@@ -2798,8 +2912,7 @@ def main() -> int:
             ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k)),
             unqueued_ms=time_ms(lambda: K.cooccur_cuda(ranked, wr, n_items=k), queued=False),
             plain_ms=time_ms(lambda: cooc_ref.cooccur_ref(ranked, wr, n_items=k), reps=3),
-            library_ms=time_ms(lambda: X.T @ X),
-            library_call="one-hot fp32 matmul X^T X (one-hot built outside the timing)",
+            **cooccur_library(ranked, wr, k, got),
             bound_ms=b, bound_by=by,
         )
         if name == "pumsb":
@@ -2822,7 +2935,7 @@ def main() -> int:
         else:
             entries["cooccur"][f"at_{name}"] = e
         log(f"  B4 equal to its plain version on {name} (K={k})")
-        del X, ranked, wr, lut
+        del ranked, wr, lut
 
     # B1 and B2 at the level-2 waves of mushroom (W=2048), pumsb and kosarak
     # (both W=16384), through the wave entry the miner calls
@@ -2848,7 +2961,7 @@ def main() -> int:
         # ops.wave_cost); B2's at min_count mc and la_block 512, the case
         # timed below
         live = idx[:, :n_live]
-        dead_at = nl_ref.first_dead_slot(exact, planes[2][live[2]], mc, 512)
+        dead_at = nl_ref.first_dead_slot(exact, planes[0][live[2]], planes[2][live[2]], mc, 512)
         by_1, ops1 = wave_cost(planes, state, idx, n_live)
         by_2, ops2 = wave_cost(planes, state, idx, n_live, early_stop=True, min_count=mc, la_block=512)
         shape = (f"{name} level-2 wave: {n_live} candidates, Cpad {B} x W {W}, "
@@ -2883,6 +2996,23 @@ def main() -> int:
             else:
                 entries[kname][f"at_{name}"] = e
         del planes, state, idx, live, exact, dead_at, na
+
+    # the padding contract: B1 and B2 on soiled padding slots, at the mushroom
+    # level-2 wave (W 2048) and at a 1,024-candidate wave on Job 2's real
+    # N-lists at production scale (W 512)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mc = counts["mushroom"]
+    planes, state, idx, n_live = level2_wave(miner, preps["mushroom"], mc)
+    n_pad = padding_contract(K, nl_ref, "mushroom level-2 wave", planes, state, idx, n_live,
+                             (mc // 2, mc, 2 * mc), gen)
+    planes, state, idx, n_live, stop = fim_wave(dev)
+    n_pad += padding_contract(K, nl_ref, "production wave, W 512", planes, state, idx, n_live,
+                              (stop // 2, stop, 2 * stop), gen)
+    log(f"  B1 and B2 equal to their plain versions on soiled padding slots: {n_pad} comparisons "
+        f"(states 0-4, count + 1, padding-only; A counts and posts on padding; B2 at 3 min_counts x "
+        f"la_block 128/256/512; 256- and 1,024-thread blocks) in {time.perf_counter() - t0:.1f}s")
+    del planes, state, idx, gen
     # phase 4 reports each mine's peak memory: nothing of phase 3 stays alive
     del preps, prep, got, want
     torch.cuda.synchronize()

@@ -51,13 +51,19 @@ def intersect_torch(a_pre, a_post, y_pre, y_post, y_cnt):
     """Intersection on padded int32 buffers, on any device; a leading
     candidate axis batches it (``searchsorted`` takes batched rows).
 
-    Padded slots: ``pre = INF, post = -1, cnt = 0`` — they sort last, never
-    pass the subsume test and contribute zero count, so no masks are needed.
+    The padding contract: a slot whose pre is ``INF`` is padding, a suffix
+    of each list. Whatever post and count it carries, a padding Y code
+    merges into no A slot (it is masked), and no valid Y code reaches an A
+    padding slot (it sorts last). The wave kernels B1/B2 keep the same
+    contract. The reference's ``intersect_jnp`` gives a padding code's count
+    to the last valid A code and its Pallas kernel to every valid A code;
+    all three agree where padding counts are 0, as every miner path writes
+    them (``pre = INF, post = -1, cnt = 0``).
     """
     la = a_pre.shape[-1]
     idx = torch.searchsorted(a_pre.contiguous(), y_pre.contiguous(), side="left") - 1
     cidx = idx.clamp(0, max(la - 1, 0))
-    ok = (idx >= 0) & (torch.gather(a_post, -1, cidx) > y_post)
+    ok = (idx >= 0) & (y_pre != INF) & (torch.gather(a_post, -1, cidx) > y_post)
     contrib = torch.where(ok, y_cnt, 0).to(torch.int64)
     out = torch.zeros(a_pre.shape, dtype=torch.int64, device=a_pre.device)
     return out.scatter_add_(-1, cidx, contrib)

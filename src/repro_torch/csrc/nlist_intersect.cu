@@ -35,15 +35,23 @@
 //   ancestor lies in A chunk [t0, t1) are one contiguous run, those with
 //   a_pre[t0] < y_pre <= a_pre[t1]. The block first bounds both lists'
 //   valid lengths with one round of NT strided probes (padding is a
-//   suffix), then walks A's valid part in chunks of SPT*NT slots, keeping
-//   only the chunk's pre/post and merged row in shared memory (12 bytes a
-//   slot; the liveness scan reads the chunk's A counts from global memory,
-//   where the mass pass left them in cache), and streams Y from where the
-//   last chunk stopped: 4*NT codes a
-//   step, counts first and pre/post only where the count is nonzero, the
-//   run ending at the first nonzero-count code past a_pre[t1]. Each chunk's
-//   merged slots are written once; the rest of the row is written as zeros.
-// - Early stop that stops: with T = total A-count mass and
+//   suffix), then walks A's slots below the bound in chunks of SPT*NT
+//   slots, keeping only the chunk's pre/post and merged row in shared
+//   memory (12 bytes a slot; the liveness scan reads the chunk's A counts
+//   from global memory, where the mass pass left them in cache), and
+//   streams Y from where the last chunk stopped: 4*NT codes a step, counts
+//   first and pre/post only where the count is nonzero, the run ending at
+//   the first nonzero-count code past a_pre[t1]. Each chunk's merged slots
+//   are written once; the rest of the row is written as zeros.
+// - The padding contract at no extra load round: every chunk's Y run ends
+//   below INT32_MAX, so a Y padding code (pre INT32_MAX) is always past the
+//   run and merges nothing; no valid Y code can reach an A padding slot
+//   (padding sorts last), so the merge needs no exact length. B2's mass
+//   pass reads A's pre beside its counts and leaves padding out of the
+//   mass T. The scan's D(p) still counts padding counts, but only at slots
+//   p past the last valid one, where a dead tile zeroes only padding and
+//   leaves the support whole: the answer is the plain version's.
+// - Early stop that stops: with T = total A-count mass of the valid slots and
 //   D(p) = sum_{i<p} (merged[i] - a_cnt[i]), the tile starting at p is
 //   alive iff support-so-far + suffix mass >= min_count, i.e.
 //   D(p) >= min_count - T. A block scan of D over the chunk checks every
@@ -62,8 +70,13 @@
 //   1,024 threads take 4,096-slot chunks, so each chain is at most 4 chunks
 //   at W = 16384 and the SMs still hold 32 warps each. No W limit: shared
 //   memory holds a chunk, never a row.
-// Inputs must keep the N-list contract: both lists pre-ascending, padding
-// pre = INT32_MAX, post = -1, count 0.
+// The padding contract: a slot whose pre is INT32_MAX is padding, a suffix
+// of each list (both lists pre-ascending before it). Whatever post and
+// count a padding slot carries, it merges into no A slot, and under early
+// stop its A count adds nothing to the liveness mass. So the result does
+// not depend on the launch shape (NT, SPT), and it equals the plain
+// versions' (ref.py, core/nlist.py:intersect_torch), which mask padding the
+// same way.
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -146,7 +159,7 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
   const int* yc = y_cnt + rc * Ly;
 
   // valid lengths (upper bounds): A's slots past na and Y's codes past ny
-  // are padding, which merges nothing
+  // are padding, which merges nothing and weighs nothing (see the header)
   {
     const int pa = warp_min(first_padded_probe<NT>(ap, La));
     const int py = warp_min(first_padded_probe<NT>(yp, Ly));
@@ -160,9 +173,16 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
   long long theta = 0;  // the tile at p is dead iff D(p) < theta
   const int* ac = nullptr;
   if (kMasked) {
+    // the mass of A's valid slots: each count masked by its slot's pre,
+    // both loaded unconditionally so that no load waits on another (a
+    // branch or a second pass over the padded slots makes the 256-thread B2
+    // spill registers)
     ac = a_cnt + ra * La;
     long long m = 0;
-    for (int i = tid; i < na; i += NT) m += ac[i];
+    for (int i = tid; i < na; i += NT) {
+      const int c = ac[i], p = ap[i];
+      m += c & -(int)(p != INT_MAX);
+    }
     theta = min_count - block_sum<NT>(m, scratch);
   }
 
@@ -180,7 +200,8 @@ wave_kernel(const int* __restrict__ a_pre, const int* __restrict__ a_post,
       s_post[i] = aq[t0 + i];
       s_m[i] = 0;
     }
-    const int hi = t0 + n < na ? ap[t0 + n] : INT_MAX;
+    // the run's end; below INT_MAX, so Y's padding codes lie past every run
+    const int hi = min(t0 + n < na ? ap[t0 + n] : INT_MAX, INT_MAX - 1);
     __syncthreads();
 
     // merge the chunk's run of Y codes: it ends at the first nonzero-count

@@ -86,7 +86,9 @@ def _b2_cost(a_pre, a_post, a_cnt, y_pre, *args, **kw):
 @cost.charged(_b1_cost)
 def nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt):
     """B1: ``(merged (B, La) int32, supports (B,) int32)``. Both lists must
-    be pre-ascending (N-lists are), padding pre=INT32_MAX, post=-1, cnt=0."""
+    be pre-ascending (N-lists are) up to their padding: a slot whose pre is
+    INT32_MAX is padding, a suffix of each list, and merges into no A slot
+    whatever post and count it carries (``core.nlist.intersect_torch``)."""
     if a_pre.device.type == "cpu":
         return nlist_intersect_fused_ref(a_pre, a_post, y_pre, y_post, y_cnt)
     B, La, Ly = _check(a_pre, a_post, y_pre, y_post, y_cnt)
@@ -99,7 +101,8 @@ def nlist_intersect_cuda(a_pre, a_post, y_pre, y_post, y_cnt):
 def nlist_intersect_es_cuda(a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_count, *,
                             la_block=512):
     """B2: B1 with tile-order early stop at ``min_count`` (see
-    ``ref.nlist_intersect_masked_ref``, which it reproduces exactly)."""
+    ``ref.nlist_intersect_masked_ref``, which it reproduces exactly, the
+    padding contract included: A's padding counts weigh nothing)."""
     if a_pre.device.type == "cpu":
         return nlist_intersect_masked_ref(
             a_pre, a_post, a_cnt, y_pre, y_post, y_cnt, min_count, la_block=la_block)
@@ -118,7 +121,10 @@ def nlist_wave_cuda(planes, prev_state, idx, n_live, *, early_stop=False, min_co
     parent's state ``prev_state[idx[0, b]]``; B2 (``early_stop``) or B1.
     ``planes`` (3, K, W) int32, ``prev_state`` (Cprev, W) int32, ``idx``
     (3, Cpad) int64 -> ``(new_state (Cpad, W) int32, sup (Cpad,) int32)``,
-    rows ``>= n_live`` zero. Indices must lie inside ``planes``/``prev_state``."""
+    rows ``>= n_live`` zero. Indices must lie inside ``planes``/``prev_state``.
+    Padding slots (pre INT32_MAX) merge nothing whatever ``prev_state`` holds
+    there, and under early stop their ``planes[2]`` counts add nothing to
+    the liveness mass (``ref.first_dead_slot``)."""
     if planes.device.type == "cpu":
         return nlist_wave_ref(planes, prev_state, idx, n_live, early_stop=early_stop,
                               min_count=min_count, la_block=la_block)

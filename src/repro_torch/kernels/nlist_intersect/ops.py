@@ -89,7 +89,9 @@ def wave_cost(planes: torch.Tensor, state: torch.Tensor, idx: torch.Tensor, n_li
     this wave's data needs them, each input read once and each output
     written once.
 
-    Padding is a suffix and merges nothing, so candidate b needs its A
+    Padding (pre = INT32_MAX) is a suffix and merges and weighs nothing,
+    whatever counts it carries (the kernels' padding contract, see
+    ``core.nlist.intersect_torch``), so candidate b needs its A
     pre/post (extension item's row) up to slot p_b: under early stop
     (B2) its first dead slot (``ref.first_dead_slot`` on B1's exact rows),
     else its valid length; under early stop also its A counts up to the
@@ -108,7 +110,7 @@ def wave_cost(planes: torch.Tensor, state: torch.Tensor, idx: torch.Tensor, n_li
     stop = None
     if early_stop:
         exact = nlist_wave_ref(planes, state, idx, n_live)[0][:n_live]
-        stop = first_dead_slot(exact, planes[2][live[2]], min_count, la_block)
+        stop = first_dead_slot(exact, planes[0][live[2]], planes[2][live[2]], min_count, la_block)
     pad = torch.iinfo(torch.int32).max
     lens = (planes[0] != pad).sum(1)
     na, ny = lens[live[2]], lens[live[1]]

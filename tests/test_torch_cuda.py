@@ -224,6 +224,54 @@ def test_nlist_wave_kernel(cuda, wave_db, W, n_cand):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("n_cand", ["few", "many"])
+@pytest.mark.parametrize("W", [512, 2048])
+def test_wave_kernel_padding_contract(cuda, wave_db, W, n_cand):
+    """The padding contract on the card: parent states with counts on the
+    base items' padding slots (pre INT32_MAX) and count planes with counts
+    on A's padding slots merge and weigh nothing, in B1 and B2 alike, so
+    the kernels equal their plain versions and, where only padding is
+    soiled, the in-contract answer. Two widths and both block sizes ("few"
+    candidates take 1,024 threads, "many" 256) give four probe strides
+    ceil(W / threads), the quantity the answer on such input used to
+    depend on."""
+    rows, n_items, mc = wave_db
+    miner = HPrepostMiner(cuda, HPrepostConfig(nlist_width=W))
+    prep = miner.prepare(rows, n_items, mc)
+    planes = prep.packed[0].permute(2, 0, 1).contiguous()
+    qs, ps = np.nonzero(prep.C >= mc)
+    if n_cand == "few":
+        qs, ps = qs[:100], ps[:100]
+    else:
+        reps = -(-600 // len(qs))
+        qs, ps = np.tile(qs, reps), np.tile(ps, reps)
+    ranks = np.stack([qs, ps], axis=1).astype(np.int32)
+    idx, _, _ = miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))
+    idx, n_live = T(idx, cuda), len(ranks)
+    gen = torch.Generator(device=cuda).manual_seed(W)
+    pad = planes[0] == INF  # level 2: parent p's state lies on p's slots
+
+    def on_pad(lo, hi, x):
+        return torch.where(pad, torch.randint(lo, hi, x.shape, generator=gen, device=cuda,
+                                              dtype=torch.int32), x)
+
+    soiled = planes.clone()
+    soiled[1], soiled[2] = on_pad(-1, 16, planes[1]), on_pad(1, 1000, planes[2])
+    states = {"in-contract": planes[2], "padding-only": on_pad(1, 1000, planes[2]),
+              "count+1": planes[2] + 1}
+    for kw in ({}, *(dict(early_stop=True, min_count=s, la_block=lab)
+                     for s in (mc // 2, mc, 2 * mc) for lab in (128, 512))):
+        contract = nlist_wave_ref(planes, planes[2], idx, n_live, **kw)
+        for sname, state in states.items():
+            for pl in (planes, soiled):
+                got = nlist_wave_cuda(pl, state, idx, n_live, **kw)
+                want = nlist_wave_ref(pl, state, idx, n_live, **kw)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (sname, kw)
+                if sname != "count+1":
+                    assert torch.equal(got[0], contract[0]) and torch.equal(got[1], contract[1])
+    torch.cuda.synchronize()
+
+
 def test_wrappers_refuse_bad_tensors(cuda):
     x = torch.zeros((4, 4), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):

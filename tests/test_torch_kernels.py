@@ -175,6 +175,88 @@ def test_nlist_intersect_zero_count_and_pad_slots():
         assert not got[b].any() and sup[b] == 0
 
 
+def _soiled(rng, pre, x, low, high):
+    """A copy of ``x`` holding values drawn from [low, high) on the padding
+    slots (``pre`` INT32_MAX); the valid slots keep theirs."""
+    pad = pre == INF
+    x = x.copy()
+    x[pad] = rng.integers(low, high, size=int(pad.sum()))
+    return x
+
+
+@pytest.mark.parametrize("soiled", ["y", "a", "both"])
+def test_padding_contract_plain_b1_b2_wave(soiled):
+    """The padding contract: a slot whose pre is INT32_MAX is padding and,
+    whatever post and count it carries, merges into no A slot and adds
+    nothing to B2's liveness mass. The plain B1, B2 and wave entry (two
+    levels) on inputs with soiled padding (Y's, A's or both) equal the same
+    calls on the clean inputs (post -1, count 0 there), tolerance 0."""
+    rng = np.random.default_rng(len(soiled))
+    clean = _nlist_batch(rng, 8, 40, 48, with_a_cnt=True)
+    a_pre, a_post, a_cnt, y_pre, y_post, y_cnt = clean
+    if soiled != "a":
+        y_post, y_cnt = _soiled(rng, y_pre, y_post, -5, 64), _soiled(rng, y_pre, y_cnt, 1, 10)
+    if soiled != "y":
+        a_post, a_cnt = _soiled(rng, a_pre, a_post, -5, 64), _soiled(rng, a_pre, a_cnt, 1, 10)
+    dirty = (a_pre, a_post, a_cnt, y_pre, y_post, y_cnt)
+
+    def eq(got, want):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def b1(a_pre, a_post, a_cnt, *y):
+        return nlist_intersect_cuda(*map(T, (a_pre, a_post, *y)))
+
+    eq(b1(*dirty), b1(*clean))
+    for stop in (0, 5, 40, 1 << 20):
+        for lab in (1, 8, 512):
+            eq(nlist_intersect_es_cuda(*map(T, dirty), stop, la_block=lab),
+               nlist_intersect_es_cuda(*map(T, clean), stop, la_block=lab))
+
+    planes, l2, n2, l3, n3 = _wave_inputs(len(soiled), width=24, pad=3)
+    assert (planes[0] == INF).any()
+    dirty_planes = planes.copy()
+    if soiled != "y":  # the extension items' rows: A's posts and counts
+        dirty_planes[1] = _soiled(rng, planes[0], planes[1], -5, 64)
+        dirty_planes[2] = _soiled(rng, planes[0], planes[2], 1, 10)
+    prev, prev_pre = planes[2], planes[0]  # level 2 reads the singleton states
+    for idx, n_live in ((l2, n2), (l3, n3)):
+        dirty_prev = _soiled(rng, prev_pre, prev, 1, 10) if soiled != "a" else prev
+        for kw in ({}, *(dict(early_stop=True, min_count=s, la_block=lab)
+                         for s in (0, 4, 30) for lab in (1, 8, 512))):
+            eq(nlist_wave_cuda(T(dirty_planes), T(dirty_prev), T(idx), n_live, **kw),
+               nlist_wave_cuda(T(planes), T(prev), T(idx), n_live, **kw))
+        # a state row lies on its extension item's code slots
+        prev, prev_pre = nlist_wave_cuda(T(planes), T(prev), T(idx), n_live)[0].numpy(), planes[0][idx[2]]
+
+
+def test_reference_padding_answers_out_of_contract():
+    """Pinned on purpose: on counts at padding slots the reference's two
+    wave backends disagree with each other and with the port. A holds 3
+    valid codes, Y 2 (counts 3 and 4) then 6 padding slots of count 7,
+    La = Ly = 8. The Pallas kernel's dense subsume mask reads a padding
+    code as a descendant of every valid A code (each gets 6 * 7 = 42);
+    ``intersect_jnp``'s searchsorted gives all 42 to the last valid A code;
+    the port merges no padding (its contract)."""
+    from repro.core.nlist import intersect_jnp
+
+    a_pre = np.array([[1, 5, 9] + [INF] * 5], np.int32)
+    a_post = np.array([[4, 8, 12] + [-1] * 5], np.int32)
+    y_pre = np.array([[2, 6] + [INF] * 6], np.int32)
+    y_post = np.array([[3, 7] + [-1] * 6], np.int32)
+    y_cnt = np.array([[3, 4] + [7] * 6], np.int32)
+    args = (a_pre, a_post, y_pre, y_post, y_cnt)
+    pallas, psup = nlist_intersect_pallas(*map(jnp.asarray, args), la_block=8, ly_block=8,
+                                          batch_block=1, interpret=True)
+    np.testing.assert_array_equal(np.asarray(pallas)[0], [45, 46, 42, 0, 0, 0, 0, 0])
+    assert int(np.asarray(psup)[0]) == 133
+    dense = np.asarray(intersect_jnp(*(jnp.asarray(x[0]) for x in args)))
+    np.testing.assert_array_equal(dense, [3, 4, 42, 0, 0, 0, 0, 0])
+    assert int(dense.sum()) == 49
+    got, sup = nlist_intersect_cuda(*map(T, args))
+    np.testing.assert_array_equal(got.numpy()[0], [3, 4, 0, 0, 0, 0, 0, 0])
+    assert int(sup[0]) == 7
+
+
 def test_nlist_intersect_real_tree(paper_db):
     rows, n_items = paper_db
     fl = jenc.build_flist(jenc.item_support(rows, n_items), 3)

@@ -217,7 +217,7 @@ def test_chip_smoke_wave_bytes_counts_valid_prefixes(stop_mult):
     stop = None
     if stop_mult:
         exact = nl_ref.nlist_wave_ref(planes, state, idx, n_live)[0][:n_live]
-        stop = nl_ref.first_dead_slot(exact, planes[2][live[2]], stop_mult * mc, 8)
+        stop = nl_ref.first_dead_slot(exact, planes[0][live[2]], planes[2][live[2]], stop_mult * mc, 8)
     got, got_ops = wave_cost(planes, state, idx, n_live, early_stop=stop is not None,
                              min_count=(stop_mult or 0) * mc, la_block=8)
 

@@ -22,8 +22,14 @@ without (``unqueued``, which also counts the host's launch time):
     on the rows (weights all ones, as Job 1 calls it), and
     ``b3_zero_weights`` with every weight 0: a kernel that skips a zero
     weight then makes the same loads and no atomic.
-B2 runs at the dataset's min_count, la_block 512. Every output is held to
-exact equality with the checkout's plain version. Prints one JSON line.
+B2 runs at the dataset's min_count, la_block 512. Then B4 at its two wide
+shapes: ``b4_production``, the reference's production rows (1,048,576 x 48
+Zipf rows over 41,270 items from ``launch.dryrun_fim.zipf_rows``, ranked by
+``top_k_flist`` to K = 2,048, as phase 14 of ``chip_smoke.py`` builds them)
+and ``b4_pumsb_segment``, pumsb's first 12,262 rows ranked by their own
+supports (K = 7,104, the width of phase 8's first segment). Every output is
+held to exact equality with the checkout's plain version. Prints one JSON
+line.
 """
 from __future__ import annotations
 
@@ -122,6 +128,28 @@ def main() -> int:
             r[key] = both(lambda: K.histogram_cuda(rows_d, wb, n_bins=n_items))
         del prep, planes, state, idx_t, ranked, lut, w1, w0, rows_d
         torch.cuda.empty_cache()
+    # B4 at its wide shapes
+    from repro_torch.launch.dryrun_fim import top_k_flist, zipf_rows
+
+    def wide(key, ranked, k):
+        w1 = torch.ones(ranked.shape[0], dtype=torch.int32, device=dev)
+        assert_equal(key, (K.cooccur_cuda(ranked, w1, n_items=k),), (cooc_ref.cooccur_ref(ranked, w1, n_items=k),))
+        out[key] = {"shape": f"{tuple(ranked.shape)}, K {k}", **both(lambda: K.cooccur_cuda(ranked, w1, n_items=k))}
+
+    raw = zipf_rows(1_048_576, 48, 41_270, seed=0, device=dev)
+    fl = top_k_flist(torch.bincount(raw[raw >= 0].long(), minlength=41_270).cpu().numpy(), 2048)
+    wide("b4_production", enc.rank_encode_torch(raw, torch.from_numpy(fl.rank_lut()).to(dev), 41_270), 2048)
+    del raw
+    rows, n_items = synth.load("pumsb", scale=1.0)
+    seg = rows[:12_262]
+    sup = np.bincount(seg[seg >= 0], minlength=n_items)
+    items = np.nonzero(sup)[0]
+    order = items[np.argsort(-sup[items], kind="stable")]
+    lut = np.full(n_items, -1, np.int32)
+    lut[order] = np.arange(len(order))
+    ranked = np.where(seg >= 0, lut[np.maximum(seg, 0)], -1).astype(np.int32)
+    wide("b4_pumsb_segment", torch.from_numpy(ranked).to(dev), len(order))
+    torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
 

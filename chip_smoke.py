@@ -10,7 +10,10 @@ Phases, in order; any failure raises and exits non-zero:
      with its plain PyTorch version on the card, and timed beside it (and
      beside one PyTorch library call where one computes the same function:
      for B4 the weighted one-hot product, and with all weights 1 its exact
-     bf16 and int8 tensor-core forms, ``cooccur_library``);
+     bf16 and int8 tensor-core forms, ``cooccur_library``; at every shape
+     B4 runs also the instance it takes, its bucketing pass alone, the
+     dense-product floor, its scratch and each instance's ptxas report,
+     ``cooccur_extras``);
      B1/B2 through the wave entry the miner calls, then held to the padding
      contract on soiled padding slots (``padding_contract``: parent states
      of 0-4, count + 1 and counts on padding only, A counts on padding, B2
@@ -198,6 +201,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -402,6 +406,71 @@ def cooccur_library(ranked, w, k, want, timing=None, reps: int = 10) -> dict:
     out["tensor_core_calls"] = ("bf16_ms: torch.mm(Xb.T, Xb, out_dtype=float32) on a bf16 one-hot; int8_ms: "
                                 "torch._int_mm on an int8 one-hot (int32 sums); both exact below 2^24")
     return out
+
+
+PEAK_INT8_OPS = 1979e12  # the H100 SXM's dense int8 tensor-core rate (NVIDIA's data sheet)
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Each kernel instance of ``csrc/<name>.cu`` as ptxas reported it in
+    this run's build (``-Xptxas -v``): registers, spill bytes, static
+    shared memory."""
+    from repro_torch.kernels import _cuda
+
+    out, cur = [], None
+    for line in _cuda.build_logs.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            m = re.search(r"([a-z_]+_kernel)(ILi(\d+)E)?", fn)  # the mangled name, shortened
+            cur = dict(function=(m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) if m else fn)
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+            cur["spill_stores"], cur["spill_loads"] = nums[1], nums[2]
+        elif cur is not None and "registers" in line:
+            words = line.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            cur["static_smem"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+    return out
+
+
+def cooccur_extras(ranked, w, k: int, timing=None) -> dict:
+    """B4's design numbers at one shape, for the log line: the bucketing
+    pass alone (K > 128; not a counted launch), the dense-product floor (the
+    upper triangle's R x k(k+1)/2 multiply-adds at the int8 peak: what a
+    dense one-hot product could not beat), the scratch and the instances'
+    dynamic shared memory. Of these only ``bucket_ms`` is measured, so only
+    it goes into the ``kernels`` line (``measured_extras``)."""
+    from repro_torch.kernels.cooccur import kernel as kk
+
+    timing = timing or time_ms
+    R, L = ranked.shape
+    macs = R * k * (k + 1) // 2
+    e = dict(dense_floor_ms=2 * macs / PEAK_INT8_OPS * 1e3, dense_macs=macs)
+    if k <= kk.BAND:
+        e.update(instance=f"cooc_band_kernel<{64 if k <= 64 else 128}>", scratch_bytes=0)
+        return e
+    lib = kk._library()
+    blocks = kk.product_blocks(R, k, torch.cuda.get_device_properties(ranked.device).multi_processor_count)
+    e.update(instance="cooc_bucket_kernel + cooc_wgmma_kernel", product_blocks=blocks,
+             scratch_bytes=lib.cooccur_scratch_bytes(R, L, k, blocks),
+             dynamic_smem={"cooc_bucket_kernel": lib.cooccur_smem_bytes(k, L, 0),
+                           "cooc_wgmma_kernel": lib.cooccur_smem_bytes(k, L, 1)},
+             bucket_ms=timing(lambda: kk.cooccur_bucket_pass(ranked, w, n_items=k)))
+    return e
+
+
+def measured_extras(e: dict) -> dict:
+    """The measured part of ``cooccur_extras``: the bucketing pass's time."""
+    return {"bucket_ms": e["bucket_ms"]} if "bucket_ms" in e else {}
+
+
+def log_cooccur_extras(label: str, e: dict, smi: str) -> None:
+    bucket = f"bucketing pass alone {e['bucket_ms']:.4f} ms, " if "bucket_ms" in e else ""
+    log(f"  B4 design at {label}: {e['instance']}; {bucket}dense-product floor {e['dense_floor_ms']:.4f} ms "
+        f"({e['dense_macs']} multiply-adds at 1,979 TOPS); scratch {e['scratch_bytes']} bytes"
+        + (f"; dynamic shared memory {json.dumps(e['dynamic_smem'])}" if "dynamic_smem" in e else "")
+        + f"; ptxas {json.dumps(ptxas_report('cooccur'))} [{smi}]")
 
 
 def host_answer(data, host, name, min_count):
@@ -646,7 +715,7 @@ def device_timeline(prof) -> dict:
            for e in events
            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     busy = sum(b - a for a, b in union_us([(a, b) for _, _, a, b in ivs])) / 1e3
-    prep = {s for n, s, _, _ in ivs if "hist_kernel" in n or "cooc_mma_kernel" in n}
+    prep = {s for n, s, _, _ in ivs if "hist_kernel" in n or "cooc_" in n}
     wave = {s for n, s, _, _ in ivs if "wave_kernel" in n}
     out = {"busy_ms": busy, "device_events": len(ivs), "prep_streams": sorted(map(str, prep)),
            "wave_streams": sorted(map(str, wave)), "concurrent_ms": None}
@@ -1075,6 +1144,9 @@ def stream_phase(K, data, host, smi: str):
                     **cooccur_library(ranked, wr, seg.k, K.cooccur_cuda(ranked, wr, n_items=seg.k),
                                       reps=3),
                     bound_ms=b, bound_by=by)
+        extras = cooccur_extras(ranked, wr, seg.k)
+        log_cooccur_extras(f"a pumsb segment (K={seg.k})", extras, smi)
+        cooc.update(measured_extras(extras))
         del ranked, wr, lut
         h = psm.db.handles()[0]
         planes, single = h.planes[0], h.singleton[0]  # the one data shard
@@ -2733,6 +2805,10 @@ def dryrun_phase(smi: str, K, dev="cuda", scale: float = 1.0, sweep_mesh: str = 
         plain_ms=timing(lambda: cooc_ref.cooccur_ref(ranked, w1, n_items=k), reps=2),
         **cooccur_library(ranked, w1, k, cooc, timing, reps=3),
         bound_ms=b, bound_by=by)
+    if on_card:
+        extras = cooccur_extras(ranked, w1, k, timing)
+        log_cooccur_extras(f"the production rows (K={k})", extras, smi)
+        entries["cooccur"].update(measured_extras(extras))
     del cooc, valid, flat
     Cs, W = inp["C"] // inp["Mb"], inp["W"]
     planes = torch.from_numpy(inp["planes"][0]).to(dev)
@@ -2915,6 +2991,9 @@ def main() -> int:
             **cooccur_library(ranked, wr, k, got),
             bound_ms=b, bound_by=by,
         )
+        extras = cooccur_extras(ranked, wr, k)
+        log_cooccur_extras(f"{name} (K={k})", extras, smi)
+        e.update(measured_extras(extras))
         if name == "pumsb":
             entries["cooccur"] = dict(source="src/repro_torch/csrc/cooccur.cu",
                                       replaces="src/repro/kernels/cooccur/kernel.py:23", **e)

@@ -123,13 +123,35 @@ def test_histogram_kernel(cuda, case):
 
 
 def _cooccur_rows(rng, R, L, K, mode):
-    """unique: w = 1 and distinct ranks per row (the main path: all on the
-    tensor cores); mixed: mostly w = 1 with repeats, zeros and a few large
-    weights (both paths in one tile); weighted: weights up to 2^20, repeats."""
-    if mode == "unique":
+    """unique: w = 1 and distinct ranks per row, unsorted (the main path: all
+    on the tensor cores); mixed: mostly w = 1 with repeats, zeros and a few
+    large weights (both paths in one tile); weighted: weights up to 2^20,
+    repeats; zipf: rows drawn as ``launch.dryrun_fim`` draws them (a Zipf
+    law over 4K items) and ranked by support, so sorted and skewed like the
+    reference's production rows; banded: unique rows whose second row tile
+    holds items of the last band only, and, from three bands on, band 1
+    with no entries at all; view: unique rows passed as the view rows[1:],
+    whose start is not 16-byte aligned."""
+    if mode == "zipf":
+        from repro_torch.launch.dryrun_fim import top_k_flist, zipf_rows
+
+        raw = zipf_rows(R, L, 4 * K, seed=K)
+        fl = top_k_flist(np.bincount(raw[raw >= 0].numpy(), minlength=4 * K), K)
+        ranked = enc.rank_encode_torch(raw, torch.from_numpy(fl.rank_lut()), 4 * K)
+        return ranked.numpy(), np.ones(R, np.int32)
+    if mode in ("unique", "banded", "view"):
         rows = np.stack([rng.permutation(max(K, L))[:L] for _ in range(R)])
         rows = np.where(rows < K, rows, -1)
         rows[rng.random(rows.shape) < 0.3] = -1
+        if mode == "banded":
+            nb = -(-K // 128)
+            lo = (nb - 1) * 128
+            for r in range(128, min(256, R)):
+                rows[r] = -1
+                pick = lo + rng.permutation(K - lo)[:L]
+                rows[r, :len(pick)] = pick
+            if nb >= 3:
+                rows[(rows >= 128) & (rows < 256)] = -1
         return rows.astype(np.int32), np.ones(R, np.int32)
     rows = rng.integers(-1, K, size=(R, L)).astype(np.int32)
     if mode == "mixed":
@@ -139,19 +161,47 @@ def _cooccur_rows(rng, R, L, K, mode):
     return rows, w.astype(np.int32)
 
 
-@pytest.mark.parametrize("mode", ["unique", "mixed", "weighted"])
-@pytest.mark.parametrize("K", [1, 60, 127, 300, 1000])
+@pytest.mark.parametrize("mode", ["unique", "mixed", "weighted", "zipf", "banded", "view"])
+@pytest.mark.parametrize("K", [1, 60, 127, 300, 1000, 2048, 4096, 7117])
 def test_cooccur_kernel(cuda, K, mode):
-    """K not a multiple of the 64-item tile: a transposed fragment or a lost
-    mirror shows off the diagonal tile."""
+    """K not a multiple of the 128-item band: a transposed fragment or a
+    lost mirror shows off the diagonal tile. R = 2,000 is not a multiple of
+    the 128-row tile; the wide cases (K from 2,048: the production K, the
+    stream's ``max_f1`` and pumsb's universe) take L = 74, whose rows are
+    8-byte aligned only, K = 1,000 takes L = 99, whose row tiles do not fit
+    the bucketing pass's shared memory (it reads them from global memory),
+    and K <= 128 runs the single-band kernel."""
     rng = np.random.default_rng(K)
-    rows, w = _cooccur_rows(rng, 2000, 17, K, mode)
+    L = 74 if K >= 2048 else 99 if K == 1000 else 17
+    rows, w = _cooccur_rows(rng, 2000, L, K, mode)
     rows, w = T(rows, cuda), T(w, cuda)
+    if mode == "view":
+        rows, w = rows[1:], w[1:]
+        assert rows.data_ptr() % 16 != 0
     before = cooccur_cuda.launches
     got = cooccur_cuda(rows, w, n_items=K)
     torch.cuda.synchronize()
     assert cooccur_cuda.launches == before + 1
     assert torch.equal(got, cooccur_ref(rows, w, n_items=K))
+
+
+@pytest.mark.parametrize("K", [300, 2048])
+def test_cooccur_kernel_on_each_card(cuda, K):
+    """The wide-K kernels need more than 48 KB of dynamic shared memory,
+    an opt-in that holds for one card only: a mesh runs B4 on each of its
+    positions' cards, so every card must take the launch, each first
+    launched after another card's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices: one card cannot show a per-card setting")
+    rng = np.random.default_rng(K)
+    rows, w = _cooccur_rows(rng, 2000, 74, K, "mixed")
+    want = cooccur_ref(torch.from_numpy(rows), torch.from_numpy(w), n_items=K)
+    for index in [0] + list(range(n - 1, 0, -1)):
+        dev = torch.device("cuda", index)
+        got = cooccur_cuda(T(rows, dev), T(w, dev), n_items=K)
+        assert got.device == dev
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("B,La,Ly", [(1, 1, 1), (5, 40, 70), (7, 130, 257), (3, 20000, 20000)])

@@ -106,6 +106,52 @@ def test_cooccur_vs_pallas(R, L, K):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("K", [57, 300, 2048, 7117])
+def test_cooccur_cpu_takes_the_plain_version(monkeypatch, K):
+    """A CPU tensor goes to ``cooccur_ref`` at any K, one band or many: the
+    wrapper neither builds nor loads the CUDA library for it."""
+    from repro_torch.kernels import _cuda
+
+    def no_library(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    rng = np.random.default_rng(K)
+    rows = rng.integers(-1, K, size=(300, 9)).astype(np.int32)
+    w = rng.integers(0, 4, size=300).astype(np.int32)
+    before = cooccur_cuda.launches
+    got = cooccur_cuda(T(rows), T(w), n_items=K)
+    assert cooccur_cuda.launches == before
+    assert torch.equal(got, cooccur_ref(T(rows), T(w), n_items=K))
+
+
+@pytest.mark.parametrize("K", [1, 57, 128])
+def test_cooccur_bucket_pass_needs_two_bands(K):
+    """K <= 128 runs the single-band kernel, which has no bucketing pass to
+    time apart."""
+    from repro_torch.kernels.cooccur.kernel import cooccur_bucket_pass
+
+    with pytest.raises(ValueError, match="single-band"):
+        cooccur_bucket_pass(T(np.zeros((4, 3), np.int32)), T(np.ones(4, np.int32)), n_items=K)
+
+
+@pytest.mark.parametrize("R,K,sms,want", [
+    (1 << 20, 2048, 132, 132),   # 136 tiles x 8,192 row tiles: one block a SM
+    (12_262, 7_104, 132, 132),
+    (8_124, 300, 132, 96),       # 3 bands: 6 tiles x 64 row tiles / 4
+    (100, 200, 132, 1),          # 3 tiles x 1 row tile
+    (1_000, 2048, 8, 8),
+    (2_000, 300, 132, 24),       # 6 tiles x 16 row tiles / 4
+    (129, 129, 132, 2),          # 3 tiles x 2 row tiles, rounded up
+])
+def test_cooccur_product_blocks(R, K, sms, want):
+    """Persistent product blocks: one a SM, or fewer so that each takes
+    4 row tiles on average (each piece ends in an epilogue of atomics)."""
+    from repro_torch.kernels.cooccur.kernel import product_blocks
+
+    assert product_blocks(R, K, sms) == want
+
+
 def test_cooccur_chunking_is_exact(monkeypatch):
     from repro_torch.kernels.cooccur import ref
 

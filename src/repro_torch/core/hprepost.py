@@ -536,71 +536,81 @@ class HPrepostMiner:
         already counted the batch, and no histogram kernel is launched),
         and the result is marked ``support_ordered=False``: it can only be
         mined through ``mine_prepared_segments``."""
-        cfg = self.cfg
-        D = self.D
-        stages: dict[str, float] = {}
-        t0 = time.perf_counter()
-        R0, L = rows.shape
-        Rs = -(-R0 // D)  # rows per shard
-        # the kernels accumulate counts in int32; every count they can
-        # produce is bounded by the shard's row count, so refuse what could wrap
-        if self.backend == "cuda" and Rs >= EXACT_MAX:
-            raise ValueError(
-                f"per-shard row count {Rs} reaches the int32 exact-integer bound "
-                f"2^31-1 of the CUDA kernels' counts; shard the database over "
-                f"more devices (D={D})"
-            )
-        shard_rows = self._shard_rows(rows)
-
-        if flist is None:
-            supports = self._job1(shard_rows, n_items).cpu().numpy()
-            self.stage_counters["job1"] += 1
-            fl = enc.build_flist(supports, min_count_floor)
-        else:
-            if flist.n_items != n_items:
+        with trace.span("prep"):
+            cfg = self.cfg
+            D = self.D
+            stages: dict[str, float] = {}
+            t0 = time.perf_counter()
+            R0, L = rows.shape
+            Rs = -(-R0 // D)  # rows per shard
+            # the kernels accumulate counts in int32; every count they can
+            # produce is bounded by the shard's row count, so refuse what could wrap
+            if self.backend == "cuda" and Rs >= EXACT_MAX:
                 raise ValueError(
-                    f"imposed flist covers {flist.n_items} items, database has {n_items}"
+                    f"per-shard row count {Rs} reaches the int32 exact-integer bound "
+                    f"2^31-1 of the CUDA kernels' counts; shard the database over "
+                    f"more devices (D={D})"
                 )
-            fl = flist
-        stages["job1_flist"] = time.perf_counter() - t0
-        K = fl.k
-        if K > cfg.max_f1:
-            raise ValueError(f"|F1|={K} exceeds max_f1={cfg.max_f1}; raise min_count or max_f1")
+            # each stage's span is timed on position (0, 0)'s stream while
+            # profiling; the times are read after F2's .cpu() has waited for it
+            with trace.span("prep.h2d", device=self.device):
+                shard_rows = self._shard_rows(rows)
 
-        rows_flist_bytes = Rs * L * 4 + int(fl.items.nbytes + fl.supports.nbytes)
-        prep_bytes = rows_flist_bytes
-        stages["job2_ppc_pack"] = 0.0
-        stages["f2_scan"] = 0.0
-        packed = None
-        C = np.zeros((K, K), np.int64)
-        W = 0
-        if K > 0 and need_waves:
-            t0 = time.perf_counter()
-            ranked, trees = self._job2(shard_rows, torch.from_numpy(fl.rank_lut()), K, n_items)
-            self.stage_counters["job2"] += 1
-            # W covers the longest N-list of any shard (the reference's pmax)
-            longest = [torch.bincount(item, minlength=K).max() for item, *_ in trees]
-            w_needed = max(int(torch.stack([n.to(self.device) for n in longest]).max()), 1)
-            W = cfg.nlist_width or _pow2(max(w_needed, 8))
-            packed = tuple(pack_nlists_torch(*tree, K, W)[0] for tree in trees)
-            self.stage_counters["pack"] += 1
-            stages["job2_ppc_pack"] = time.perf_counter() - t0
+            with trace.span("prep.job1", device=self.device):
+                if flist is None:
+                    supports = self._job1(shard_rows, n_items).cpu().numpy()
+                    self.stage_counters["job1"] += 1
+                    fl = enc.build_flist(supports, min_count_floor)
+                else:
+                    if flist.n_items != n_items:
+                        raise ValueError(
+                            f"imposed flist covers {flist.n_items} items, database has {n_items}"
+                        )
+                    fl = flist
+            stages["job1_flist"] = time.perf_counter() - t0
+            K = fl.k
+            if K > cfg.max_f1:
+                raise ValueError(f"|F1|={K} exceeds max_f1={cfg.max_f1}; raise min_count or max_f1")
 
-            t0 = time.perf_counter()
-            if K > 1:
-                C = self._jobf2(ranked, K).cpu().numpy()
-                self.stage_counters["f2"] += 1
-            C = np.triu(C, 1)
-            stages["f2_scan"] = time.perf_counter() - t0
-            prep_bytes += K * W * 3 * 4
+            rows_flist_bytes = Rs * L * 4 + int(fl.items.nbytes + fl.supports.nbytes)
+            prep_bytes = rows_flist_bytes
+            stages["job2_ppc_pack"] = 0.0
+            stages["f2_scan"] = 0.0
+            packed = None
+            C = np.zeros((K, K), np.int64)
+            W = 0
+            if K > 0 and need_waves:
+                t0 = time.perf_counter()
+                with trace.span("prep.job2", device=self.device):
+                    ranked, trees = self._job2(shard_rows, torch.from_numpy(fl.rank_lut()), K,
+                                               n_items)
+                    self.stage_counters["job2"] += 1
+                with trace.span("prep.pack", device=self.device):
+                    # W covers the longest N-list of any shard (the reference's pmax)
+                    longest = [torch.bincount(item, minlength=K).max() for item, *_ in trees]
+                    w_needed = max(int(torch.stack([n.to(self.device) for n in longest]).max()), 1)
+                    W = cfg.nlist_width or _pow2(max(w_needed, 8))
+                    packed = tuple(pack_nlists_torch(*tree, K, W)[0] for tree in trees)
+                    self.stage_counters["pack"] += 1
+                stages["job2_ppc_pack"] = time.perf_counter() - t0
 
-        return PreparedDB(
-            fl=fl, n_items=n_items, n_rows=R0, min_count_floor=int(min_count_floor),
-            width=W, packed=packed, C=C,
-            prep_bytes=prep_bytes, rows_flist_bytes=rows_flist_bytes,
-            stage_times=stages, f1_only=not need_waves, n_shards=D,
-            support_ordered=flist is None,
-        )
+                t0 = time.perf_counter()
+                with trace.span("prep.f2", device=self.device):
+                    if K > 1:
+                        C = self._jobf2(ranked, K).cpu().numpy()
+                        self.stage_counters["f2"] += 1
+                    C = np.triu(C, 1)
+                stages["f2_scan"] = time.perf_counter() - t0
+                prep_bytes += K * W * 3 * 4
+            trace.settle_device_times()
+
+            return PreparedDB(
+                fl=fl, n_items=n_items, n_rows=R0, min_count_floor=int(min_count_floor),
+                width=W, packed=packed, C=C,
+                prep_bytes=prep_bytes, rows_flist_bytes=rows_flist_bytes,
+                stage_times=stages, f1_only=not need_waves, n_shards=D,
+                support_ordered=flist is None,
+            )
 
     # -------------------------------------------------- the prep stages
     # (``prepare`` runs them; ``launch.dryrun_fim`` times and costs each)
@@ -703,6 +713,11 @@ class HPrepostMiner:
             plan = self._kernel_plan(idx.shape[1], planes.shape[2])
         if not isinstance(idx, torch.Tensor):
             idx = _to_device(idx, planes.device)
+        # the launch's bytes whatever the data: every slot's state row and
+        # support written, the live index columns read (``ops.wave_cost``'s
+        # floor), for the wave kernels' roofline share
+        trace.count("wave.floor_bytes",
+                    idx.shape[1] * planes.shape[2] * 4 + idx.shape[1] * 4 + 3 * n_live * 8)
         return nlist_wave(
             planes, prev_state, idx, n_live, backend=plan.backend, la_block=plan.la_block,
             early_stop=plan.early_stop and stop_count > 0, min_count=stop_count,
@@ -865,8 +880,9 @@ class HPrepostMiner:
         # planar (3, K, W) copy of each shard's N-lists, made on its position
         # (d, 0): the wave kernel reads each candidate's (pre, post, count)
         # rows as contiguous W-wide rows
-        planes = self._position_planes(
-            [p.permute(2, 0, 1).contiguous() for p in prepared.packed])
+        with trace.span("mine.planes"):
+            planes = self._position_planes(
+                [p.permute(2, 0, 1).contiguous() for p in prepared.packed])
         # level-2 parents: each shard's singleton counts, packed[d][..., 2]
         prev_state = [[p[2] for p in row] for row in planes]
         qs, ps = np.nonzero(C >= min_count)
@@ -880,85 +896,91 @@ class HPrepostMiner:
         # supports: one data shard (no cross-shard sum completes them later)
         stop_count = min_count if (cfg.early_stop and self.D == 1) else 0
 
-        t0 = time.perf_counter()
-        while len(ranks) or pending is not None:
-            dispatched = None
-            if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
-                idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
-                                                     slots_per_shard)
-                local = level > 2 and cfg.locality_dispatch
-                stages["planned_candidates"] += float(len(ranks))
-                failures.fire("mine.wave")
-                with trace.span("mine.wave", k=level, candidates=len(ranks)):
-                    new_state, sups = self._mesh_wave(
-                        planes, prev_state, idx, self._group_live(slot_of, Cpad), level, local,
-                        stop_count)
-                    read = _HostRead(sups)
-                self.stage_counters["waves"] += 1
-                dispatched = (ranks, parents, slot_of, read)
-                # per position, as the reference counts it
-                peak = max(peak, int(new_state[0][0].numel() * 4))
-                prev_state = new_state
-                slots_per_shard = Cpad // self._Mb
-                level += 1
-            if not cfg.pipeline_waves and dispatched is not None:
-                # degrade: block right away (no speculative wave in flight,
-                # so the parent column is never consulted)
-                pending = (dispatched[0], dispatched[2], dispatched[3])
+        # the span holds exactly the region the stage times
+        with trace.span("mine.waves"):
+            t0 = time.perf_counter()
+            while len(ranks) or pending is not None:
                 dispatched = None
+                if (len(ranks) and (max_k is None or level <= max_k)
+                        and len(itemsets) < cfg.max_itemsets):
+                    with trace.span("mine.plan"):
+                        idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
+                                                             slots_per_shard)
+                    local = level > 2 and cfg.locality_dispatch
+                    stages["planned_candidates"] += float(len(ranks))
+                    failures.fire("mine.wave")
+                    with trace.span("mine.wave", k=level, candidates=len(ranks)):
+                        new_state, sups = self._mesh_wave(
+                            planes, prev_state, idx, self._group_live(slot_of, Cpad), level,
+                            local, stop_count)
+                        read = _HostRead(sups)
+                    self.stage_counters["waves"] += 1
+                    dispatched = (ranks, parents, slot_of, read)
+                    # per position, as the reference counts it
+                    peak = max(peak, int(new_state[0][0].numel() * 4))
+                    prev_state = new_state
+                    slots_per_shard = Cpad // self._Mb
+                    level += 1
+                if not cfg.pipeline_waves and dispatched is not None:
+                    # degrade: block right away (no speculative wave in flight,
+                    # so the parent column is never consulted)
+                    pending = (dispatched[0], dispatched[2], dispatched[3])
+                    dispatched = None
 
-            surv_mask = None  # boolean over the settled wave's device slots
-            surv_ranks = surv_slots = None
-            if pending is not None:
-                p_ranks, p_slots, p_read = pending
-                with trace.span("mine.reduce", k=level - 1):
-                    host = p_read.get()  # blocks on wave l-1 only
-                svals = host[p_slots]
-                keep = svals >= min_count
-                if keep.any():
-                    emit_items = np.sort(items_arr[p_ranks[keep]], axis=1)
-                    for t, s in zip(emit_items.tolist(), svals[keep].tolist()):
-                        itemsets[tuple(t)] = int(s)
-                surv_mask = np.zeros(host.shape[0], bool)
-                surv_mask[p_slots[keep]] = True
-                surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
-                pending = None
+                surv_mask = None  # boolean over the settled wave's device slots
+                surv_ranks = surv_slots = None
+                if pending is not None:
+                    p_ranks, p_slots, p_read = pending
+                    with trace.span("mine.reduce", k=level - 1):
+                        host = p_read.get()  # blocks on wave l-1 only
+                    with trace.span("mine.emit"):
+                        svals = host[p_slots]
+                        keep = svals >= min_count
+                        if keep.any():
+                            emit_items = np.sort(items_arr[p_ranks[keep]], axis=1)
+                            for t, s in zip(emit_items.tolist(), svals[keep].tolist()):
+                                itemsets[tuple(t)] = int(s)
+                        surv_mask = np.zeros(host.shape[0], bool)
+                        surv_mask[p_slots[keep]] = True
+                        surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
+                    pending = None
 
-            if dispatched is not None:
-                d_ranks, d_parents, d_slot_of, d_read = dispatched
-                if surv_mask is not None:
-                    # speculative wave l was enumerated before wave l-1's
-                    # supports arrived; drop children of dead parents from
-                    # further enumeration (their own supports self-filter)
-                    kept = surv_mask[d_parents]
-                    stages["host_pruned_parent"] += float((~kept).sum())
-                    d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
-                    if cfg.early_stop:
-                        sub = self._apriori_kept(d_ranks, surv_ranks)
-                        if sub is not None:
-                            stages["host_pruned_subset"] += float((~sub).sum())
-                            d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
-                pending = (d_ranks, d_slot_of, d_read)
-                ranks, parents, qarr = self._extensions(
-                    d_ranks, d_slot_of, pair_packed, prefix_packed, K
-                )
-            elif surv_mask is not None and not cfg.pipeline_waves:
-                ranks, parents, qarr = self._extensions(
-                    surv_ranks, surv_slots, pair_packed, prefix_packed, K
-                )
-                if cfg.early_stop and len(ranks):
-                    # un-pipelined, the closure check lands *before* dispatch:
-                    # doomed candidates never ship to the device at all
-                    sub = self._apriori_kept(ranks, surv_ranks)
-                    if sub is not None:
-                        stages["host_pruned_subset"] += float((~sub).sum())
-                        ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
-            else:
-                ranks = np.empty((0, 2), np.int32)
-                parents = np.empty(0, np.int64)
-                qarr = np.empty(0, np.int32)
+                with trace.span("mine.plan"):
+                    if dispatched is not None:
+                        d_ranks, d_parents, d_slot_of, d_read = dispatched
+                        if surv_mask is not None:
+                            # speculative wave l was enumerated before wave l-1's
+                            # supports arrived; drop children of dead parents from
+                            # further enumeration (their own supports self-filter)
+                            kept = surv_mask[d_parents]
+                            stages["host_pruned_parent"] += float((~kept).sum())
+                            d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
+                            if cfg.early_stop:
+                                sub = self._apriori_kept(d_ranks, surv_ranks)
+                                if sub is not None:
+                                    stages["host_pruned_subset"] += float((~sub).sum())
+                                    d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
+                        pending = (d_ranks, d_slot_of, d_read)
+                        ranks, parents, qarr = self._extensions(
+                            d_ranks, d_slot_of, pair_packed, prefix_packed, K
+                        )
+                    elif surv_mask is not None and not cfg.pipeline_waves:
+                        ranks, parents, qarr = self._extensions(
+                            surv_ranks, surv_slots, pair_packed, prefix_packed, K
+                        )
+                        if cfg.early_stop and len(ranks):
+                            # un-pipelined, the closure check lands *before* dispatch:
+                            # doomed candidates never ship to the device at all
+                            sub = self._apriori_kept(ranks, surv_ranks)
+                            if sub is not None:
+                                stages["host_pruned_subset"] += float((~sub).sum())
+                                ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
+                    else:
+                        ranks = np.empty((0, 2), np.int32)
+                        parents = np.empty(0, np.int64)
+                        qarr = np.empty(0, np.int32)
 
-        stages["mining_waves"] = time.perf_counter() - t0
+            stages["mining_waves"] = time.perf_counter() - t0
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
 
     def extend_with_sentinel(self, prepared: PreparedDB, shard: int = 0):

@@ -76,7 +76,7 @@ from repro_torch.mining.registry import Miner, get_miner
 from repro_torch.mining.result import MineResult
 from repro_torch.mining.spec import MineSpec
 from repro_torch.mining.service.store import SnapshotStore
-from repro_torch.mining.telemetry import Registry
+from repro_torch.mining.telemetry import Registry, trace
 from repro_torch.mining.tune import KernelTuner
 
 # per-stage latency histograms are recorded for these stage_times_s keys
@@ -221,13 +221,14 @@ class MiningEngine:
         (and, when bound, the snapshot store): back-to-back submits on the
         same database re-run zero prep stages (the second answer carries
         ``prep_shared`` and 0.0 prep times)."""
-        with self._lock:
-            self.stats["submits"] += 1
-        if spec.algorithm == "hprepost" and self.prep_cache_bytes > 0:
-            return self._submit_cached(rows, n_items, spec)
-        res = self.frontend(spec.algorithm).mine(rows, n_items, spec)
-        self._observe_result(res)
-        return res
+        with trace.span("engine.submit"):
+            with self._lock:
+                self.stats["submits"] += 1
+            if spec.algorithm == "hprepost" and self.prep_cache_bytes > 0:
+                return self._submit_cached(rows, n_items, spec)
+            res = self.frontend(spec.algorithm).mine(rows, n_items, spec)
+            self._observe_result(res)
+            return res
 
     def _observe_result(self, res: MineResult) -> None:
         """Record one answered request into the latency registry. Totals
@@ -292,49 +293,50 @@ class MiningEngine:
         is exact for arrays <= 64KiB and probabilistic above (a mutation
         confined entirely to unsampled bytes passes); callers wanting a
         hard guarantee still use the sanctioned routes above."""
-        arr = np.asarray(rows)
-        with self._lock:
-            memo = self._fp_memo.get(id(arr))
-        was_frozen = False
-        if memo is not None and memo[0]() is arr:
-            if not arr.flags.writeable:
-                if self._sample_digest(arr) == memo[3]:
-                    return memo[1]
-                # mutated through a pre-existing writeable view: the
-                # entry is stale even though the flags never moved.
-                # Remember that the memo froze this array so the fresh
-                # entry still thaws it on invalidation.
-                was_frozen = memo[2]
-            # else: caller unfroze to mutate — auto-invalidate
+        with trace.span("engine.fingerprint"):
+            arr = np.asarray(rows)
             with self._lock:
-                self._fp_memo.pop(id(arr), None)
-        fp = self._digest(arr)
-        if arr.base is not None:
-            return fp  # view: base mutation is invisible here — no memo
-        if not arr.flags.c_contiguous:
-            return fp  # sample guard needs a flat byte view — no memo
-        try:
-            ref = weakref.ref(arr)
-        except TypeError:
-            return fp  # not weakref-able: correctness first, no memo
-        frozen = was_frozen
-        if arr.flags.writeable:
+                memo = self._fp_memo.get(id(arr))
+            was_frozen = False
+            if memo is not None and memo[0]() is arr:
+                if not arr.flags.writeable:
+                    if self._sample_digest(arr) == memo[3]:
+                        return memo[1]
+                    # mutated through a pre-existing writeable view: the
+                    # entry is stale even though the flags never moved.
+                    # Remember that the memo froze this array so the fresh
+                    # entry still thaws it on invalidation.
+                    was_frozen = memo[2]
+                # else: caller unfroze to mutate — auto-invalidate
+                with self._lock:
+                    self._fp_memo.pop(id(arr), None)
+            fp = self._digest(arr)
+            if arr.base is not None:
+                return fp  # view: base mutation is invisible here — no memo
+            if not arr.flags.c_contiguous:
+                return fp  # sample guard needs a flat byte view — no memo
             try:
-                arr.setflags(write=False)
-                frozen = True
-            except ValueError:
-                return fp  # cannot freeze: mutation undetectable — no memo
-        sample = self._sample_digest(arr)
-        with self._lock:
-            if len(self._fp_memo) >= self._fp_sweep_at:  # drop dead entries
-                self._fp_memo = {
-                    k: v for k, v in self._fp_memo.items() if v[0]() is not None
-                }
-                # all-live memos (many resident DBs) must not re-sweep on
-                # every insert: back off to double the surviving size
-                self._fp_sweep_at = max(1024, 2 * len(self._fp_memo))
-            self._fp_memo[id(arr)] = (ref, fp, frozen, sample)
-        return fp
+                ref = weakref.ref(arr)
+            except TypeError:
+                return fp  # not weakref-able: correctness first, no memo
+            frozen = was_frozen
+            if arr.flags.writeable:
+                try:
+                    arr.setflags(write=False)
+                    frozen = True
+                except ValueError:
+                    return fp  # cannot freeze: mutation undetectable — no memo
+            sample = self._sample_digest(arr)
+            with self._lock:
+                if len(self._fp_memo) >= self._fp_sweep_at:  # drop dead entries
+                    self._fp_memo = {
+                        k: v for k, v in self._fp_memo.items() if v[0]() is not None
+                    }
+                    # all-live memos (many resident DBs) must not re-sweep on
+                    # every insert: back off to double the surviving size
+                    self._fp_sweep_at = max(1024, 2 * len(self._fp_memo))
+                self._fp_memo[id(arr)] = (ref, fp, frozen, sample)
+            return fp
 
     def invalidate_fingerprints(self, rows=None) -> None:
         """Forget memoized fingerprints — all of them, or just ``rows`` —
@@ -493,11 +495,12 @@ class MiningEngine:
         min_count = spec.resolve(len(rows))
         need_waves = spec.max_k is None or spec.max_k > 1
         t_lk = time.perf_counter()
-        ent = self._cache_lookup(key, min_count, need_waves)
-        source = "cache"
-        if ent is None:
-            ent = self._snapshot_load(key, min_count, need_waves, spec)
-            source = "snapshot"
+        with trace.span("engine.cache"):
+            ent = self._cache_lookup(key, min_count, need_waves)
+            source = "cache"
+            if ent is None:
+                ent = self._snapshot_load(key, min_count, need_waves, spec)
+                source = "snapshot"
         if ent is not None:
             self.telemetry.histogram(f"engine.{source}_hit_s").record(
                 time.perf_counter() - t_lk

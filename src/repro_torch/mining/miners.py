@@ -20,6 +20,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.mining.registry import register_miner
 from repro_torch.mining.result import MineResult
 from repro_torch.mining.spec import MineSpec
+from repro_torch.mining.telemetry import trace
 
 
 def default_mesh(device=None):
@@ -67,37 +68,39 @@ class _MinerBase:
     ) -> MineResult:
         """Assemble the enriched MineResult (pattern post-pass included) —
         shared by the one-shot ``mine`` and the engine's shared-prep path."""
-        stages = dict(stages) if stages else {"mine": time.perf_counter() - t0}
-        if spec.patterns != "all":
-            tp = time.perf_counter()
-            itemsets = _select_patterns(itemsets, spec)
-            stages["patterns"] = time.perf_counter() - tp
-        return MineResult(
-            algorithm=self.name,
-            itemsets=itemsets,
-            total_count=total,
-            n_explicit=n_explicit,
-            min_count=min_count,
-            n_rows=n_rows,
-            peak_bytes=int(peak),
-            wall_time_s=time.perf_counter() - t0,
-            stage_times_s=dict(stages),
-            flist_items=flist,
-            prep_shared=prep_shared,
-        )
+        with trace.span("frontend.finish"):
+            stages = dict(stages) if stages else {"mine": time.perf_counter() - t0}
+            if spec.patterns != "all":
+                tp = time.perf_counter()
+                itemsets = _select_patterns(itemsets, spec)
+                stages["patterns"] = time.perf_counter() - tp
+            return MineResult(
+                algorithm=self.name,
+                itemsets=itemsets,
+                total_count=total,
+                n_explicit=n_explicit,
+                min_count=min_count,
+                n_rows=n_rows,
+                peak_bytes=int(peak),
+                wall_time_s=time.perf_counter() - t0,
+                stage_times_s=dict(stages),
+                flist_items=flist,
+                prep_shared=prep_shared,
+            )
 
     def mine(self, rows, n_items: int, spec: MineSpec) -> MineResult:
-        rows = np.asarray(rows)
-        min_count = spec.resolve(len(rows))
-        self._check_patterns(spec)
-        t0 = time.perf_counter()
-        itemsets, total, n_explicit, peak, stages, flist = self._run(
-            rows, n_items, min_count, spec
-        )
-        return self._finish(
-            itemsets, total, n_explicit, peak, stages, flist,
-            spec=spec, min_count=min_count, n_rows=len(rows), t0=t0,
-        )
+        with trace.span("frontend.mine"):
+            rows = np.asarray(rows)
+            min_count = spec.resolve(len(rows))
+            self._check_patterns(spec)
+            t0 = time.perf_counter()
+            itemsets, total, n_explicit, peak, stages, flist = self._run(
+                rows, n_items, min_count, spec
+            )
+            return self._finish(
+                itemsets, total, n_explicit, peak, stages, flist,
+                spec=spec, min_count=min_count, n_rows=len(rows), t0=t0,
+            )
 
 
 @register_miner("prepost")
@@ -267,17 +270,18 @@ class HPrepostFrontend(_MinerBase):
         ``prep_stages`` folds the real prep times into this result's
         ``stage_times_s`` — pass it on the one request that paid for prep;
         the others keep 0.0 prep keys and ``prep_shared=True``."""
-        self._check_patterns(spec)
-        min_count = spec.resolve(prepared.n_rows)
-        if t0 is None:
-            t0 = time.perf_counter()
-        res = miner.mine_prepared(prepared, min_count, max_k=spec.max_k)
-        stages = dict(miner.last_stage_times)
-        if prep_stages:
-            stages.update(prep_stages)
-        return self._finish(
-            res.itemsets, res.total_count, res.n_explicit, res.peak_bytes,
-            stages, res.flist_items,
-            spec=spec, min_count=min_count, n_rows=prepared.n_rows, t0=t0,
-            prep_shared=prep_shared,
-        )
+        with trace.span("frontend.mine"):
+            self._check_patterns(spec)
+            min_count = spec.resolve(prepared.n_rows)
+            if t0 is None:
+                t0 = time.perf_counter()
+            res = miner.mine_prepared(prepared, min_count, max_k=spec.max_k)
+            stages = dict(miner.last_stage_times)
+            if prep_stages:
+                stages.update(prep_stages)
+            return self._finish(
+                res.itemsets, res.total_count, res.n_explicit, res.peak_bytes,
+                stages, res.flist_items,
+                spec=spec, min_count=min_count, n_rows=prepared.n_rows, t0=t0,
+                prep_shared=prep_shared,
+            )

@@ -6,8 +6,10 @@ and a periodic stats emitter for the serving stack.
     ``Registry`` of named histograms/counters/gauges (one per
     ``MiningEngine``, at ``engine.telemetry``);
   - :mod:`.trace` — per-request span trees behind a ``failures``-style
-    global attach/detach, exported as JSON or Chrome trace events. With no
-    recorder attached a span site costs one global read;
+    global attach/detach, exported as JSON or Chrome trace events; the
+    same spans become ``torch.profiler`` ranges and fill a per-name table
+    (``profiled()``) while the profiler records. With neither active a
+    span site costs one global read and one C call;
   - :mod:`.emit` — ``StatsEmitter``, a background JSON-lines snapshot
     loop with chaos-point drop containment (``telemetry.emit``).
 """

@@ -1,28 +1,58 @@
-"""Per-request span trees with monotonic timestamps.
+"""Per-request span trees, and the same spans in any ``torch.profiler``
+trace of the port.
 
-The recorder follows the ``repro.fault.failures`` attach/detach shape: a
-module-global ``_active`` recorder that every instrumentation site reads
-once. With nothing attached, ``span(...)`` returns a shared no-op
-context manager — one global load and one function call, so the hot wave
-loop pays nothing when tracing is off. Attach a ``TraceRecorder`` (the
-CLI does this for ``--trace out.json``) and the same sites produce a
-span tree per request:
+One call, ``span(name, **args)``, feeds up to three sinks:
+
+- an attached ``TraceRecorder`` (the CLI attaches one for ``--trace
+  out.json``), which builds a span tree per request with
+  ``time.monotonic()`` timestamps;
+- while ``torch.profiler`` records on the calling thread (torch keeps
+  that state per thread), a profiler range of the same name, so the span
+  lands in the profiler's trace on its thread and on the device trace's
+  clock;
+- while the profiler records, a process-wide table by span name
+  (``profiled()``, cleared by ``reset_profiled()``): the count, the
+  seconds, the self seconds (the seconds less those of the span's direct
+  children on the same thread) and, for a span opened with ``device=``,
+  its device seconds. ``count(name, n)`` adds counters to the same table.
+
+With no recorder attached and the profiler not recording, ``span(...)``
+returns a shared no-op context manager after one global load and one
+cheap C call, so the hot wave loop pays next to nothing when tracing is
+off. The recorder follows the ``repro.fault.failures`` attach/detach
+shape: a module-global ``_active`` recorder that every site reads once.
+The spans of a request:
 
     request                      (opened at submit, closed at resolve)
       admission.wait             (retroactive: submit -> batch start)
       group.classify
       group.prep
+        prep                     (HPrepostMiner.prepare; the children
+          prep.h2d               are timed on the device by events)
+          prep.job1
+          prep.job2
+          prep.pack
+          prep.f2
       group.serve
-        mine.wave k=2            (device dispatch, per level)
-        mine.reduce k=2          (host blocking collect + prune)
+        frontend.mine
+          mine.planes            (planar copy of the N-lists)
+          mine.waves             (the wave loop, stage "mining_waves")
+            mine.plan            (host candidate generation and packing)
+            mine.wave k=2        (device dispatch, per level)
+            mine.reduce k=2      (host blocking read of a wave's supports)
+            mine.emit            (itemsets from the settled wave)
+          frontend.finish
       resolve
+
+A ``MiningEngine.submit`` opens ``engine.submit`` with
+``engine.fingerprint`` and ``engine.cache`` inside, then ``prep`` on a
+miss and ``frontend.mine``.
 
 Parenting is two-mode: explicit (``parent=`` span id, used across
 threads — the service carries the request root's id on its ``_Pending``
 record into the worker loop) and implicit (a thread-local stack, so
 spans opened on one thread nest naturally: wave spans inside the
-serving span). Timestamps are ``time.monotonic()`` seconds relative to
-the recorder's epoch; exports are plain JSON (nested tree) and Chrome
+serving span). The recorder's exports are a plain JSON tree and Chrome
 trace-event format (``chrome://tracing`` / Perfetto loads it directly).
 """
 from __future__ import annotations
@@ -32,9 +62,15 @@ import json
 import threading
 import time
 
+import torch
+
+# the profiler's per-thread "recording" flag, and its cheapest range
+_profiling = torch._C._autograd._profiler_enabled
+_Range = torch._C._profiler._RecordFunctionFast
+
 
 class _NullSpan:
-    """Reusable no-op context manager: the detached fast path."""
+    """Reusable no-op context manager: the fast path with no sink active."""
 
     __slots__ = ()
 
@@ -48,6 +84,9 @@ class _NullSpan:
 _NULL = _NullSpan()
 _active: "TraceRecorder | None" = None
 _tls = threading.local()
+# span or counter name -> its row; filled only while the profiler records
+_table: dict[str, dict] = {}
+_table_lock = threading.Lock()
 
 
 def active() -> "TraceRecorder | None":
@@ -72,19 +111,133 @@ def attached(rec: "TraceRecorder"):
         attach(prev)
 
 
-def span(name: str, *, parent: int | None = None, **args):
-    """A context manager tracing one span under the attached recorder
-    (no-op when detached). ``parent`` overrides the thread-local stack."""
-    rec = _active
-    if rec is None:
+def span(name: str, *, parent: int | None = None, device: torch.device | None = None, **args):
+    """A context manager tracing one span into every active sink (a no-op
+    when none is). ``parent`` overrides the thread-local stack of the
+    attached recorder. ``device``: while profiling, the span also records
+    a timing event at its start and end on that device's current stream
+    (on the CPU its device seconds are its host seconds); the table gets
+    the elapsed time at the next ``settle_device_times()``."""
+    rec, prof = _active, _profiling()
+    if rec is None and not prof:
         return _NULL
-    return rec.span(name, parent=parent, **args)
+    return _Span(rec, name, parent, args, device, prof)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` in the table while the profiler
+    records on this thread: its row holds the calls (``count``) and the
+    sum (``total``)."""
+    if _profiling():
+        with _table_lock:
+            row = _table.get(name)
+            if row is None:
+                row = _table[name] = {"count": 0, "total": 0}
+            row["count"] += 1
+            row["total"] += n
+
+
+def settle_device_times() -> None:
+    """Read the elapsed time of every device-timed span this thread closed
+    since the last call into the table, waiting for each span's end event
+    (the caller calls this where the stream has already been waited for).
+    Nothing is pending unless the profiler was recording."""
+    pending = getattr(_tls, "pending", None)
+    while pending:
+        name, ev0, ev1 = pending.pop(0)
+        ev1.synchronize()
+        _add(name, 0, 0.0, 0.0, ev0.elapsed_time(ev1) / 1e3)
+
+
+def profiled() -> dict[str, dict]:
+    """A copy of the table: span name -> ``{count, total_s, self_s,
+    device_s}``, counter name -> ``{count, total}``."""
+    with _table_lock:
+        return {k: dict(v) for k, v in _table.items()}
+
+
+def reset_profiled() -> None:
+    """Empty the table."""
+    with _table_lock:
+        _table.clear()
 
 
 def current_span() -> int | None:
     """Id of the innermost open span on this thread (implicit parent)."""
     stack = getattr(_tls, "stack", None)
     return stack[-1] if stack else None
+
+
+def _local(attr: str) -> list:
+    """This thread's list ``attr`` of ``_tls``, made on first use."""
+    out = getattr(_tls, attr, None)
+    if out is None:
+        out = []
+        setattr(_tls, attr, out)
+    return out
+
+
+def _add(name: str, calls: int, total_s: float, self_s: float, device_s: float) -> None:
+    with _table_lock:
+        row = _table.get(name)
+        if row is None:
+            row = _table[name] = {"count": 0, "total_s": 0.0, "self_s": 0.0, "device_s": 0.0}
+        row["count"] += calls
+        row["total_s"] += total_s
+        row["self_s"] += self_s
+        row["device_s"] += device_s
+
+
+def _event(device: torch.device) -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class _Span:
+    """One span in the sinks it was opened under: the recorder ``rec``
+    (None when detached) and, with ``prof``, the profiler's range and the
+    table."""
+
+    __slots__ = ("rec", "name", "parent", "args", "device", "prof", "sid", "range", "t0",
+                 "child_s", "ev0")
+
+    def __init__(self, rec, name, parent, args, device=None, prof=False):
+        self.rec, self.name, self.parent, self.args = rec, name, parent, args
+        self.device, self.prof = device, prof
+        self.sid = self.ev0 = None
+        self.child_s = 0.0
+
+    def __enter__(self):
+        if self.rec is not None:
+            parent = current_span() if self.parent is None else self.parent
+            self.sid = self.rec.open(self.name, parent=parent, **self.args)
+            _local("stack").append(self.sid)
+        if self.prof:
+            self.range = _Range(self.name)
+            self.range.__enter__()
+            _local("frames").append(self)
+            if self.device is not None and self.device.type == "cuda":
+                self.ev0 = _event(self.device)
+            self.t0 = time.perf_counter()
+        return self.sid
+
+    def __exit__(self, *exc):
+        if self.prof:
+            dur = time.perf_counter() - self.t0
+            frames = _local("frames")
+            frames.pop()
+            if frames:
+                frames[-1].child_s += dur
+            if self.ev0 is not None:
+                _local("pending").append((self.name, self.ev0, _event(self.device)))
+            _add(self.name, 1, dur, dur - self.child_s,
+                 dur if self.device is not None and self.ev0 is None else 0.0)
+            self.range.__exit__(None, None, None)
+        if self.rec is not None:
+            _local("stack").pop()
+            self.rec.close(self.sid)
+        return False
 
 
 class TraceRecorder:
@@ -131,23 +284,6 @@ class TraceRecorder:
         sid = self.open(name, t0=t0, parent=parent, **args)
         self.close(sid, t1=max(t1, t0))
         return sid
-
-    @contextlib.contextmanager
-    def span(self, name: str, *, parent: int | None = None, **args):
-        """Scoped span; nests under this thread's innermost open span
-        unless ``parent`` is given explicitly."""
-        if parent is None:
-            parent = current_span()
-        sid = self.open(name, parent=parent, **args)
-        stack = getattr(_tls, "stack", None)
-        if stack is None:
-            stack = _tls.stack = []
-        stack.append(sid)
-        try:
-            yield sid
-        finally:
-            stack.pop()
-            self.close(sid)
 
     def __len__(self) -> int:
         with self._lock:
@@ -216,10 +352,3 @@ class TraceRecorder:
             json.dump(events, f, indent=1)
             f.write("\n")
         return len(events)
-
-    def save_json(self, path: str) -> int:
-        roots = self.to_json()
-        with open(path, "w") as f:
-            json.dump(roots, f, indent=1)
-            f.write("\n")
-        return len(roots)

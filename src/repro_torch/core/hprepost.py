@@ -782,7 +782,7 @@ class HPrepostMiner:
         return new_ranks, slots[cs], q2s.astype(np.int32)
 
     @staticmethod
-    def _apriori_kept(d_ranks: np.ndarray, surv_ranks: np.ndarray):
+    def _apriori_kept(d_ranks: np.ndarray, surv_ranks: np.ndarray, k_items: int):
         """Anti-monotone host bound, boolean form: a width-``l+1`` candidate
         can reach ``min_count`` only if *every* drop-one subset of width
         ``l`` survived the settled wave — the enumeration guarantees every
@@ -792,22 +792,84 @@ class HPrepostMiner:
         by ``pair_ok`` — so this only bites from width 4 up, and returns
         None below that.
 
-        Membership is vectorized by viewing C-contiguous int32 rank rows as
-        fixed-width byte strings: at equal total width, numpy's trailing-
-        NUL-stripping compare is still an exact row equality."""
+        Membership is by exact integer keys: a width-``w`` row of ranks in
+        ``[0, k_items)`` packs into ``bits = (k_items - 1).bit_length()``
+        bits a rank, ``63 // bits`` whole ranks to an int64 word — one word
+        where ``w·bits <= 63``, else several. Each drop-one subset's words
+        are built from prefix and suffix keys of the candidate rows and looked
+        up by ``searchsorted`` in the survivors' keys, sorted once a call;
+        several words chain through dense ids of the survivors' leading
+        words, so every lookup is on one int64."""
         l1 = d_ranks.shape[1]
         if l1 < 4 or not len(d_ranks) or not len(surv_ranks):
             return None
         w = l1 - 1
-        sv = np.ascontiguousarray(surv_ranks).view(f"S{4 * w}").ravel()
-        kept = np.ones(len(d_ranks), bool)
-        for pos in range(1, l1):
-            sub = np.ascontiguousarray(
-                np.concatenate([d_ranks[:, :pos], d_ranks[:, pos + 1:]], axis=1)
-            )
-            kept &= np.isin(sub.view(f"S{4 * w}").ravel(), sv)
+        bits = max(1, (int(k_items) - 1).bit_length())
+        per = 63 // bits  # whole ranks per word
+        words = [(a, min(a + per, w)) for a in range(0, w, per)]  # subset columns
+        d = d_ranks.astype(np.int64)
+
+        def key(rows, lo, hi):
+            k = np.zeros(len(rows), np.int64)
+            for c in range(lo, hi):
+                k = (k << bits) | rows[:, c]
+            return k
+
+        # survivors numbered word by word: after word j a row's id is where
+        # its words [0, j] first sit in the sorted (id, word) pairs (each
+        # below n_surv², well inside int64); a query row is a survivor if
+        # each of its words and pairs is found
+        if len(words) > 1:
+            trace.count("plan.subset_multiword", 1)
+        surv = surv_ranks.astype(np.int64)
+        word_tab, pair_tab, ids = [], [], None
+        for a, b in words:
+            sk = key(surv, a, b)
+            word_tab.append(np.sort(sk))
+            if ids is not None:
+                sk = ids * len(word_tab[-1]) + np.searchsorted(word_tab[-1], sk)
+                pair_tab.append(np.sort(sk))
+            if len(word_tab) < len(words):  # the next word pairs with these ids
+                ids = np.searchsorted((pair_tab or word_tab)[-1], sk)
+
+        def find(table, q):
+            i = np.minimum(np.searchsorted(table, q), len(table) - 1)
+            return i, table[i] == q
+
+        def member(q):
+            ids, hit = find(word_tab[0], q[0])
+            for u, p, x in zip(word_tab[1:], pair_tab, q[1:]):
+                k, in_u = find(u, x)
+                ids, in_p = find(p, ids * len(u) + k)
+                hit &= in_u & in_p
+            return hit
+
+        def drop_one_keys():
+            # dropping original column ``pos``: a word wholly before it reads
+            # columns [a, b), one wholly after it [a + 1, b + 1), and the word
+            # holding subset column ``pos`` joins the prefix [a, pos) to the
+            # suffix [pos + 1, b + 1)
+            before = [key(d, a, b) for a, b in words]
+            after = [key(d, a + 1, b + 1) for a, b in words]
+            for j, (a, b) in enumerate(words):
+                suffix = [np.zeros(len(d), np.int64)]  # [i]: columns [b + 1 - i, b + 1)
+                for c in range(b, a, -1):
+                    suffix.append(suffix[-1] | (d[:, c] << (bits * (b - c))))
+                prefix = np.zeros(len(d), np.int64)
+                for pos in range(max(a, 1), b + 1 if b == w else b):
+                    if pos > a:
+                        prefix = (prefix << bits) | d[:, pos - 1]
+                    mid = (prefix << (bits * (b - pos))) | suffix[b - pos]
+                    yield before[:j] + [mid] + after[j + 1:]
+
+        kept = np.ones(len(d), bool)
+        tested = 0
+        for q in drop_one_keys():
+            kept &= member(q)
+            tested += len(d)
             if not kept.any():
                 break
+        trace.count("plan.subset_rows", tested)
         return kept
 
     def mine_prepared(
@@ -956,7 +1018,7 @@ class HPrepostMiner:
                             stages["host_pruned_parent"] += float((~kept).sum())
                             d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
                             if cfg.early_stop:
-                                sub = self._apriori_kept(d_ranks, surv_ranks)
+                                sub = self._apriori_kept(d_ranks, surv_ranks, K)
                                 if sub is not None:
                                     stages["host_pruned_subset"] += float((~sub).sum())
                                     d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
@@ -971,7 +1033,7 @@ class HPrepostMiner:
                         if cfg.early_stop and len(ranks):
                             # un-pipelined, the closure check lands *before* dispatch:
                             # doomed candidates never ship to the device at all
-                            sub = self._apriori_kept(ranks, surv_ranks)
+                            sub = self._apriori_kept(ranks, surv_ranks, K)
                             if sub is not None:
                                 stages["host_pruned_subset"] += float((~sub).sum())
                                 ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
@@ -1166,7 +1228,7 @@ class HPrepostMiner:
                     stages["host_pruned_parent"] += float((~kept).sum())
                     d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
                     if cfg.early_stop:
-                        sub = self._apriori_kept(d_ranks, surv_ranks)
+                        sub = self._apriori_kept(d_ranks, surv_ranks, K)
                         if sub is not None:
                             stages["host_pruned_subset"] += float((~sub).sum())
                             d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
@@ -1179,7 +1241,7 @@ class HPrepostMiner:
                     surv_ranks, surv_slots, pair_packed, prefix_packed, K
                 )
                 if cfg.early_stop and len(ranks):
-                    sub = self._apriori_kept(ranks, surv_ranks)
+                    sub = self._apriori_kept(ranks, surv_ranks, K)
                     if sub is not None:
                         stages["host_pruned_subset"] += float((~sub).sum())
                         ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]

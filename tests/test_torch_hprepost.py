@@ -5,6 +5,7 @@ dtype and bytes), with early stop on and off. Tolerance 0."""
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core.hprepost import HPrepostConfig as JConfig
 from repro.core.hprepost import HPrepostMiner as JMiner
@@ -13,6 +14,7 @@ from repro.data.synth import load, random_db
 from repro_torch.core.hprepost import HPrepostConfig, HPrepostMiner, PreparedDB
 from repro_torch.core.prepost import mine_prepost
 from repro_torch.mining import telemetry
+from repro_torch.mining.telemetry import trace
 from repro_torch.fault import failures
 
 PLANNING = ("planned_candidates", "host_pruned_parent", "host_pruned_subset")
@@ -202,3 +204,104 @@ def test_wave_reads_planes_in_place(monkeypatch, early_stop):
         assert not new[n_live:].any() and not sup[n_live:].any()
         if i:
             assert prev is calls[i - 1][5][0]
+
+
+def _kept_by_sets(d_ranks, surv_ranks):
+    """The subset check, plainly: a row is kept if each drop-one subset
+    but the first is a survivor."""
+    surv = set(map(tuple, surv_ranks.tolist()))
+    return np.array([all(tuple(r[:p] + r[p + 1:]) in surv for p in range(1, len(r)))
+                     for r in d_ranks.tolist()], bool)
+
+
+def _subset_draw(k_items, width, seed=7):
+    """Candidates in [0, k_items) with repeated rows and the top rank
+    present; survivors hold every drop-one subset of the first third, all
+    but one of the second third's, random rows and repeats."""
+    rng = np.random.default_rng([seed, k_items, width])
+    d = rng.integers(0, k_items, (36, width)).astype(np.int32)
+    d[0] = k_items - 1
+    d = np.concatenate([d, d[:6]])
+    subs = [[np.delete(r, p) for p in range(1, width)] for r in d[:24]]
+    surv = [s for r in subs[:12] for s in r] + [s for r in subs[12:] for s in r[:-1]]
+    surv = np.array(surv + list(rng.integers(0, k_items, (20, width - 1))), np.int32)
+    return d, np.concatenate([surv, surv[::5]])
+
+
+@pytest.mark.parametrize("width", range(3, 18))
+@pytest.mark.parametrize("k_items", [2, 85, 128, 7104])
+def test_apriori_kept_integer_keys(k_items, width):
+    """The keyed subset check against sets of tuples and against the
+    reference's byte-string check, on one- and many-word keys (at K 128 a
+    width-10 row is exactly 63 bits, one word; width 11 takes two)."""
+    d, surv = _subset_draw(k_items, width)
+    got = HPrepostMiner._apriori_kept(d, surv, k_items)
+    want = JMiner._apriori_kept(d, surv)
+    if width < 4:
+        assert got is None and want is None
+        return
+    np.testing.assert_array_equal(got, _kept_by_sets(d, surv))
+    np.testing.assert_array_equal(got, want)
+    if k_items > 2:  # the draw keeps some rows and drops others
+        assert got[:12].all() and not got[12:24].all()
+
+
+@pytest.mark.parametrize("case", ["no_survivors", "no_candidates", "all_dropped"])
+def test_apriori_kept_edges(case):
+    d, surv = _subset_draw(85, 6)
+    if case == "no_survivors":
+        assert HPrepostMiner._apriori_kept(d, surv[:0], 85) is None
+    elif case == "no_candidates":
+        assert HPrepostMiner._apriori_kept(d[:0], surv, 85) is None
+    else:  # no subset survives: the early exit returns all False
+        other = (surv + 1) % 85
+        got = HPrepostMiner._apriori_kept(d, other, 85)
+        np.testing.assert_array_equal(got, _kept_by_sets(d, other))
+        np.testing.assert_array_equal(got, JMiner._apriori_kept(d, other))
+
+
+def planted_rows(n_filler: int, m: int = 2):
+    """Rows on which the Apriori subset check prunes at two widths.
+
+    For a core group G = (x0, ..., x_{g-1}): ``m`` rows of G less x0 (the
+    parent), ``m`` rows of G less x_i for i in 1..g-3, and ``g·m`` rows of
+    x0 alone, so x0 ranks first. Every pair of G is frequent and so is the
+    parent, but G less x_{g-2} and G less x_{g-1} never occur: G is a
+    doomed candidate that only the subset check removes. Two groups, of 8
+    and 5 items, prune at widths 8 and 5. ``n_filler`` further items occur
+    ``m`` times each, alone, which widens the F-list to 13 + ``n_filler``
+    ranks (and so the bits a rank) without a frequent pair."""
+    from repro.core.encoding import pad_transactions
+
+    tx, base = [], 0
+    for g in (8, 5):
+        grp = list(range(base, base + g))
+        tx += [grp[1:]] * m + [[x for x in grp if x != grp[i]] for i in range(1, g - 2)] * m
+        tx += [[grp[0]]] * (g * m)
+        base += g
+    tx += [[f] for f in range(base, base + n_filler)] * m
+    return pad_transactions(tx), base + n_filler
+
+
+def under_profiler(fn):
+    """``fn()`` under a CPU profiler, and the span table it left."""
+    trace.reset_profiled()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, trace.profiled()
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+@pytest.mark.parametrize("n_filler", [0, 600])
+def test_planted_subset_prune_parity(mesh11, n_filler, pipeline):
+    """``mine_prepared`` on rows where the subset check removes doomed
+    candidates at widths 5 and 8, the same count as the reference's: over
+    13 ranks every key is one word; over 613 (10 bits a rank) the width-8
+    check takes two words, as ``plan.subset_multiword`` shows."""
+    rows, n_items = planted_rows(n_filler)
+    cfg = dict(candidate_unit=8, pipeline_waves=pipeline)
+    res, tab = under_profiler(lambda: check_parity(mesh11, rows, n_items, 2, **cfg))
+    assert max(len(s) for s in res.itemsets) == 7
+    # check_parity held the port's count to this reference's
+    assert _pair(mesh11, **cfg)[0].last_stage_times["host_pruned_subset"] > 0
+    assert ("plan.subset_multiword" in tab) == (n_filler > 0)

@@ -160,6 +160,25 @@ def test_stream_matches_reference_oneshot_and_oracle(engines, min_sup):
                                                                max_k=4)
 
 
+@pytest.mark.parametrize("n_filler", [0, 600])
+def test_stream_planted_subset_prune(engines, n_filler):
+    """``mine_prepared_segments`` on rows where the subset check removes
+    doomed candidates at widths 5 and 8, the same count as the reference's:
+    over 13 stream ranks every key is one word; over 613 the width-8 check
+    takes two words, as ``plan.subset_multiword`` shows."""
+    from test_torch_hprepost import planted_rows, under_profiler
+
+    rows, n_items = planted_rows(n_filler)
+    tw = Twin(engines, f"planted-{n_filler}", **dict(SPEC, max_k=None))
+    for b in np.array_split(rows, 3):
+        tw.append(b, n_items)
+    res, tab = under_profiler(lambda: tw.query(min_sup=None, min_count=2))
+    tw.check()
+    assert max(len(s) for s in res.itemsets) == 7
+    assert res.stage_times_s["host_pruned_subset"] > 0
+    assert ("plan.subset_multiword" in tab) == (n_filler > 0)
+
+
 def test_stream_min_count_spec_and_fractional_boundary(engines):
     batches, n_items = _batches(2, sizes=(7, 3))
     tw = Twin(engines, "boundary", **SPEC)

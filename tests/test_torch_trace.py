@@ -201,3 +201,32 @@ def test_wave_floor_bytes_at_most_wave_cost(paper_db, db, early_stop):
     for floor, nbytes, cpad, width, n_live in seen:
         assert floor == cpad * width * 4 + cpad * 4 + 3 * n_live * 8
         assert 0 < floor <= nbytes
+
+
+def test_subset_check_counters_under_the_profiler_and_off():
+    """``plan.subset_rows`` counts the drop-one subsets the check tests
+    (up to its early exit), ``plan.subset_multiword`` the calls whose keys
+    take more than one word; with no profiler they leave no row."""
+    kept = HPrepostMiner._apriori_kept
+    # K 85, width 5: one word; every row loses its second subset, so the
+    # check stops after two positions of three rows
+    d1 = np.array([[0, 1, 2, 3, 4], [0, 1, 2, 3, 5], [0, 1, 2, 3, 6]], np.int32)
+    s1 = np.delete(d1, 1, axis=1)
+    # K 7,104, width 6: 5 subsets of 13 bits, two words; both rows kept
+    d2 = np.array([[10, 200, 3000, 4000, 5000, 7103]] * 2, np.int32)
+    s2 = np.stack([np.delete(d2[0], p) for p in range(1, 6)])
+    calls = [(d1, s1, 85), (d2, s2, 7104), (d1[:, :3], s1[:, :2], 85)]  # the last: width 3, None
+    want = [[False] * 3, [True] * 2, None]
+
+    def run():
+        for (d, s, k), w in zip(calls, want):
+            got = kept(d, s, k)
+            assert (got is None and w is None) or got.tolist() == w
+
+    run()
+    assert trace.profiled() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    tab = trace.profiled()
+    assert tab["plan.subset_rows"] == {"count": 2, "total": 3 * 2 + 2 * 5}
+    assert tab["plan.subset_multiword"] == {"count": 1, "total": 1}

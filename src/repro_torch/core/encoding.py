@@ -43,12 +43,10 @@ def pad_transactions(tx: Sequence[Sequence[int]], max_len: int | None = None) ->
 def item_support(rows: np.ndarray, n_items: int, weights: np.ndarray | None = None) -> np.ndarray:
     """Job-1 word count (host path): support of every item id."""
     flat = rows.ravel()
-    w = (
-        np.ones(rows.shape, np.int64)
-        if weights is None
-        else np.broadcast_to(weights[:, None], rows.shape)
-    ).ravel()
     mask = flat != PAD
+    if weights is None:
+        return np.bincount(flat[mask], minlength=n_items).astype(np.int64)
+    w = np.broadcast_to(weights[:, None], rows.shape).ravel()
     return np.bincount(flat[mask], weights=w[mask], minlength=n_items).astype(np.int64)
 
 

@@ -43,8 +43,7 @@ def weighted_state(db, weights: np.ndarray):
     wC = np.zeros((K, K), np.float64)
     wrows = 0.0
     for w, s in zip(weights, db.segments):
-        hist = enc.item_support(s.rows, db.n_items)
-        wsups += w * hist[items]
+        wsups += w * s.hist(db.n_items)[items]
         gr = db.rank_of[s.local_items]
         wC[np.ix_(gr, gr)] += w * np.asarray(s.prepared.C, np.float64)
         wrows += w * s.n_rows

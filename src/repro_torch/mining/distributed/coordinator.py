@@ -233,6 +233,11 @@ class DistributedMiner:
                 "decayed supports are a single-process stream mode; "
                 "distributed databases mine the exact integer path only"
             )
+        if self.stream_spec.min_sup_floor > 0:
+            raise ValueError(
+                "min_sup_floor is a single-process stream mode; distributed "
+                "databases rank every item they see"
+            )
         self.db = SegmentedDB(n_items)  # global ranks/counts/C/n_rows only
         self._segments: dict[int, SegmentMeta] = {}
         self._next_seg = 0

@@ -45,6 +45,17 @@ class StreamSpec:
     (threshold applied post-reduce). Decay requires per-segment ages, so
     it disables compaction (a merged segment has no single age) — the
     byte-fraction trigger must be left off.
+
+    ``min_sup_floor > 0`` is the loosest ``min_sup`` the stream answers
+    (its *floor*). An item is admitted while its count over the retained
+    rows reaches ``ceil(min_sup_floor · rows)``; segments are prepared
+    with their batch's admitted items only, and the global F2 matrix
+    covers the admitted items, not the item universe, so a stream over a
+    wide universe (a click stream) holds a few hundred ranks, not tens of
+    thousands. Answers stay exact: a segment whose rows hold an item
+    admitted after it was built is prepared again before the next query.
+    A query below the floor raises. Decayed supports take no floor. The
+    default 0 admits every item at its first appearance.
     """
 
     row_pad: int = 1  # pad each batch's rows to a multiple of this
@@ -56,6 +67,7 @@ class StreamSpec:
     window_rows: int = 0  # sliding window over real rows (0 = unbounded)
     window_batches: int = 0  # sliding window over appended batches
     decay: float = 1.0  # per-append damping of older segments' supports
+    min_sup_floor: float = 0.0  # loosest min_sup answered; admits items (0 = all)
 
     def __post_init__(self):
         if self.row_pad < 1:
@@ -97,6 +109,15 @@ class StreamSpec:
                 "decay < 1 disables compaction (a merged segment has no "
                 "single age) but small_rows > 0 arms the byte-fraction "
                 "compaction trigger — remove one"
+            )
+        if not (0.0 <= self.min_sup_floor < 1.0):
+            raise ValueError(
+                f"min_sup_floor must be in [0, 1), got {self.min_sup_floor}"
+            )
+        if self.min_sup_floor > 0 and self.decay < 1.0:
+            raise ValueError(
+                "min_sup_floor > 0 needs exact integer supports; decayed "
+                "streams (decay < 1) take no floor"
             )
 
     @property

@@ -11,6 +11,14 @@ segments before thresholding (``mine_prepared_segments``). Exactness
 rides on support additivity over disjoint partitions plus the shared
 stream item order every segment's tree is built in.
 
+With a floor (``StreamSpec.min_sup_floor``) an append folds the batch's
+histogram, expires what the window drops, admits the items whose window
+count reaches the floor and only then builds the segment, over the batch's
+admitted items; a query first prepares again any segment that lacks an
+item admitted since it was built (``_readmit``), then plans over the
+admitted items alone. A stationary window admits the same items at every
+append, and so re-prepares nothing.
+
 Per-segment persistence: with the engine's ``SnapshotStore`` bound, every
 segment build is spilled under a key extended with the segment's imposed
 item order (same batch + same stream history -> same key), so a restarted
@@ -52,7 +60,7 @@ from repro_torch.fault import failures
 from repro_torch.mining.engine import MiningEngine
 from repro_torch.mining.result import MineResult
 from repro_torch.mining.spec import MineSpec
-from repro_torch.mining.stream.segmented import Segment, SegmentedDB
+from repro_torch.mining.stream.segmented import Segment, SegmentedDB, segment_handles
 from repro_torch.mining.stream.spec import StreamSpec
 from repro_torch.mining.telemetry import trace
 
@@ -93,20 +101,32 @@ def build_segment(miner, store, n_items: int, rows: np.ndarray, n_rows_real: int
 
     The N-lists are then laid out once per data shard as the wave kernel's
     planes, sentinel row included, and ``prepared.packed`` becomes views of
-    them: after the snapshot spill nothing needs a second device copy."""
+    them: after the snapshot spill nothing needs a second device copy.
+    With no ``local_items`` (a floored stream's batch with no admitted
+    item) the segment is hollow: rows and histogram, no prep."""
     R0 = len(rows)
     Rp = -(-R0 // row_pad) * row_pad
     if Rp != R0:
         padded = np.full((Rp, rows.shape[1]), enc.PAD, np.int32)
         padded[:R0] = rows
         rows = padded
+    present = np.flatnonzero(hist > 0)
+    digest = _digest(rows)
+    item_to_local = np.full(n_items, -1, np.int32)
+    item_to_local[local_items] = np.arange(len(local_items), dtype=np.int32)
+    if not len(local_items):  # hollow: no admitted item to prepare
+        seg = Segment(
+            seg_id=seg_id, rows=rows, n_rows=int(n_rows_real), prepared=None,
+            shard_planes=(), local_items=local_items, item_to_local=item_to_local,
+            digest=digest[2], present=present, present_counts=hist[present],
+        )
+        return seg, "hollow"
     fl = enc.FList(
         items=local_items,
         supports=hist[local_items].astype(np.int64),
         n_items=n_items,
         min_count=1,
     )
-    digest = _digest(rows)
     key = segment_key(digest, local_items, n_items, device_cfg, miner.D)
     prepared = None
     source = "built"
@@ -135,14 +155,13 @@ def build_segment(miner, store, n_items: int, rows: np.ndarray, n_rows_real: int
                 stats["seg_snapshot_spill_failures"] += 1
     shard_planes = tuple(miner.extend_with_sentinel(prepared, d)[0] for d in range(miner.D))
     prepared.packed = tuple(p[:, :prepared.fl.k].permute(1, 2, 0) for p in shard_planes)
-    item_to_local = np.full(n_items, -1, np.int32)
-    item_to_local[local_items] = np.arange(len(local_items), dtype=np.int32)
     seg = Segment(
         seg_id=seg_id, rows=rows, n_rows=int(n_rows_real),
         prepared=prepared, shard_planes=shard_planes,
         local_items=local_items, item_to_local=item_to_local,
-        digest=digest[2],
+        digest=digest[2], present=present, present_counts=hist[present],
     )
+    trace.count("stream.kept_items", len(local_items))
     return seg, source
 
 
@@ -166,7 +185,7 @@ class StreamingMiner:
         self._fe = engine.frontend("hprepost")
         self._device_cfg = self._fe._device_config(self.spec)
         self.miner = self._fe.miner_for(self.spec)
-        self.db = SegmentedDB(n_items)
+        self.db = SegmentedDB(n_items, floor=self.stream_spec.min_sup_floor)
         self._lock = threading.RLock()
         self._next_seg = 0
         self._tick = 0  # append ticks (decay ages segments off this)
@@ -199,6 +218,8 @@ class StreamingMiner:
             "diff_latency_s_total": 0.0, "last_diff_latency_s": 0.0,
             "seed_pruned_candidates": 0,
         }
+        if self.db.floor > 0:
+            self.stats["readmits"] = 0  # segments prepared again (``_readmit``)
 
     # -------------------------------------------------------------- append
     def append(self, rows_batch) -> dict:
@@ -215,23 +236,32 @@ class StreamingMiner:
         t0 = time.perf_counter()
         with trace.span("stream.append", stream=self.name), self._lock:
             self._reap_compaction()
-            hist = enc.item_support(rows, self.n_items)
-            new_items = self.db.register_batch(hist)
-            self.db.n_rows += len(rows)
+            with trace.span("stream.fold"):
+                hist = enc.item_support(rows, self.n_items)
+                self.db.counts += hist
+                self.db.n_rows += len(rows)
             self.stats["appends"] += 1
             self.rows_appended += len(rows)
             self._tick += 1  # one decay tick per append: history ages now
-            source = "empty"
-            if hist.sum() > 0:
-                local_items = self.db.present_in_order(hist)
-                seg, source = self._build_segment(rows, len(rows), hist, local_items)
-                seg.tick = self._tick
-                self.db.add_segment(seg)
-            else:
+            incoming = hist.sum() > 0
+            if not incoming:
                 self.stats["empty_batches"] += 1
                 if self.stream_spec.windowed and len(rows):
                     self._empty_trail.append([self._tick, len(rows)])
-            n_seg_expired, n_rows_expired = self._expire()
+            # expiry first, so that the batch is built with the items the
+            # window it joins admits: a stationary window then re-prepares
+            # nothing
+            n_seg_expired, n_rows_expired = self._expire(
+                (self._tick, 1, len(rows)) if incoming else None)
+            with trace.span("stream.fold"):
+                new_items = self.db.admit()
+            source = "empty"
+            if incoming:
+                local_items = self.db.present_in_order(hist)
+                seg, source = self._build_segment(rows, len(rows), hist, local_items)
+                seg.tick = self._tick
+                with trace.span("stream.fold"):
+                    self.db.add_segment(seg)
             self._maybe_compact()
             diffs = self.standing.refresh_all(
                 "expire" if n_rows_expired else "append")
@@ -250,12 +280,14 @@ class StreamingMiner:
                 "append_s": append_s,
             }
 
-    def _expire(self) -> tuple[int, int]:
+    def _expire(self, incoming=None) -> tuple[int, int]:
         """Sliding-window expiry (lock held): drop the oldest appends —
         segments and segment-less all-PAD batches alike, ordered by their
         append tick — until the retained suffix is the minimal one still
         covering the window (``window_rows`` real rows /
-        ``window_batches`` batches). The newest append always survives.
+        ``window_batches`` batches). ``incoming``, ``(tick, batches,
+        rows)``, is an append whose segment is not built yet: it counts
+        toward the window as the newest. The newest append always survives.
         Returns (segments dropped, rows dropped). An injected expiry
         failure (``stream.expire``) skips the pass and is only accounted —
         the window self-heals on the next append, and every answer in
@@ -269,6 +301,9 @@ class StreamingMiner:
             (s.tick, s.n_batches if by_batches else s.n_rows, s, s.n_rows)
             for s in self.db.segments
         ] + [(t, 1 if by_batches else n, None, n) for t, n in self._empty_trail]
+        if incoming is not None:  # the newest entry, so never a victim
+            t, b, n = incoming
+            entries.append((t, b if by_batches else n, False, n))
         entries.sort(key=lambda e: e[0])
         if len(entries) <= 1:
             return 0, 0
@@ -287,14 +322,15 @@ class StreamingMiner:
             self.stats["expire_errors"] += 1
             return 0, 0
         t_ex = time.perf_counter()
-        seg_victims = {e[2].seg_id for e in victims if e[2] is not None}
-        dropped = self.db.drop_segments(seg_victims) if seg_victims else []
-        empty_ticks = {e[0] for e in victims if e[2] is None}
-        empty_rows = sum(n for t, n in self._empty_trail if t in empty_ticks)
-        if empty_ticks:
-            self._empty_trail = [
-                e for e in self._empty_trail if e[0] not in empty_ticks]
-            self.db.n_rows -= empty_rows
+        with trace.span("stream.expire"):
+            seg_victims = {e[2].seg_id for e in victims if e[2] is not None}
+            dropped = self.db.drop_segments(seg_victims) if seg_victims else []
+            empty_ticks = {e[0] for e in victims if e[2] is None}
+            empty_rows = sum(n for t, n in self._empty_trail if t in empty_ticks)
+            if empty_ticks:
+                self._empty_trail = [
+                    e for e in self._empty_trail if e[0] not in empty_ticks]
+                self.db.n_rows -= empty_rows
         n_rows = sum(s.n_rows for s in dropped) + empty_rows
         self.stats["expires"] += 1
         self.stats["expired_segments"] += len(dropped)
@@ -367,13 +403,20 @@ class StreamingMiner:
                 "packed under the stream spec — open a new stream to change knobs"
             )
         self._fe._check_patterns(spec)
+        with trace.span("stream.query", stream=self.name):
+            return self._mine(spec, _seed, _seed_out)
+
+    def _mine(self, spec: MineSpec, _seed, _seed_out) -> MineResult:
         t0 = time.perf_counter()
         decay = self.stream_spec.decay
         weights = None
         with self._lock:
             self._reap_compaction()
-            handles = self.db.handles()
-            items = np.asarray(self.db.order, np.int32)
+            if self.db.floor > 0:
+                self._check_floor(spec)
+                self._readmit()
+            items, C = self.db.query_state()
+            handles = segment_handles(self.db.segments, items)
             n_rows = self.db.n_rows
             n_segs = len(handles)
             seg_digest = self.db.digest()
@@ -388,27 +431,23 @@ class StreamingMiner:
                 wrows_snapshot = float(wrows)
             else:
                 sups = self.db.counts[items] if len(items) else np.zeros(0, np.int64)
-                # private copy: concurrent appends fold new batches into
-                # C/counts in place, and the wave loop reads its planning
-                # tables many times
-                C = self.db.C.copy()
                 min_count = spec.resolve(max(n_rows, 1))
                 peak_floor = min_count
             peak_base = sum(
-                s.prepared.bytes_at(peak_floor, self.miner.D) for s in self.db.segments
+                s.prepared.bytes_at(peak_floor, self.miner.D)
+                for s in self.db.segments if s.prepared is not None
             )
         if len(items) > spec.max_f1:
             raise ValueError(
                 f"|stream F-list|={len(items)} exceeds max_f1={spec.max_f1}"
             )
         qminer = self._fe.miner_for(spec)  # honors execution-only knobs
-        with trace.span("stream.query", stream=self.name, segments=n_segs):
-            res = qminer.mine_prepared_segments(
-                handles, items, sups, C, min_count, max_k=spec.max_k,
-                peak_base=peak_base, weights=weights,
-                seed=_seed if decay == 1.0 else None,
-                seed_out=_seed_out if decay == 1.0 else None,
-            )
+        res = qminer.mine_prepared_segments(
+            handles, items, sups, C, min_count, max_k=spec.max_k,
+            peak_base=peak_base, weights=weights,
+            seed=_seed if decay == 1.0 else None,
+            seed_out=_seed_out if decay == 1.0 else None,
+        )
         self.stats["queries"] += 1
         self.engine.telemetry.histogram(f"stream.{self.name}.query_s").record(
             time.perf_counter() - t0
@@ -424,6 +463,42 @@ class StreamingMiner:
         if decay < 1.0:
             out.service_stats.update(decay=decay, weighted_rows=wrows_snapshot)
         return out
+
+    def _check_floor(self, spec: MineSpec) -> None:  # lock held
+        """Refuse a query whose threshold is below the stream's floor: the
+        segments hold only the items the floor admits."""
+        min_count = spec.resolve(max(self.db.n_rows, 1))
+        floor_count = self.db.floor_count()
+        if min_count < floor_count:
+            asked = (f"min_sup={spec.min_sup}" if spec.min_count is None
+                     else f"min_count={spec.min_count}")
+            raise ValueError(
+                f"query threshold {asked} (min_count {min_count} of {self.db.n_rows} rows) "
+                f"is below the stream's floor min_sup_floor={self.db.floor} "
+                f"(min_count {floor_count})"
+            )
+
+    def _readmit(self) -> None:  # lock held
+        """Prepare again every live segment whose tree no longer fits the
+        admitted items (``SegmentedDB.stale``) from its host rows, and
+        swap it in, its F2 matrix folded out and the new one in; then give
+        up the ranks no segment holds any more. Exact answers need it
+        whatever order the batches were built in; a stationary window
+        re-prepares nothing."""
+        self.db.admit()
+        adm = self.db.admitted()
+        stale = [s for s in self.db.segments if self.db.stale(s, adm)]
+        for old in stale:
+            with trace.span("stream.readmit", segment=old.seg_id):
+                hist = old.hist(self.n_items)
+                new, _ = self._build_segment(
+                    old.rows, old.n_rows, hist, self.db.present_in_order(hist))
+                new.tick, new.n_batches = old.tick, old.n_batches
+                self.db.swap_segment(old, new)
+        if stale:
+            self.db.admit()
+        self.stats["readmits"] += len(stale)
+        trace.count("stream.readmitted_segments", len(stale))
 
     # ---------------------------------------------------------- compaction
     def _needs_compaction(self) -> bool:
@@ -527,11 +602,11 @@ class StreamingMiner:
             for v in victims:
                 rows[at:at + len(v.rows), : v.rows.shape[1]] = v.rows
                 at += len(v.rows)
-            hist = enc.item_support(rows, self.n_items)
+            hist = sum(v.hist(self.n_items) for v in victims)
             with self._lock:
-                # ranks are append-only, so the victims' items (all ranked
-                # when their batches arrived) have stable positions even if
-                # appends landed since the pass was scheduled
+                # the merge holds the items admitted now; if their ranks
+                # change before it is installed, ``replace_segments``
+                # refuses it
                 local_items = self.db.present_in_order(hist)
             if self._compact_streams is None:
                 self._compact_streams = side_streams(self.miner.devices)

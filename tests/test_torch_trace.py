@@ -230,3 +230,45 @@ def test_subset_check_counters_under_the_profiler_and_off():
     tab = trace.profiled()
     assert tab["plan.subset_rows"] == {"count": 2, "total": 3 * 2 + 2 * 5}
     assert tab["plan.subset_multiword"] == {"count": 1, "total": 1}
+
+
+def test_stream_spans_and_counters_under_the_profiler():
+    """On a floored stream an append records ``stream.fold`` and, when a
+    batch expires, ``stream.expire``; a query that prepares a segment again
+    records ``stream.readmit``; the counters ``stream.kept_items`` (Σ K_s of
+    every segment built) and ``stream.readmitted_segments`` (at every
+    query, 0 included) fill; and the benchmark's four stream metrics read
+    them."""
+    from types import SimpleNamespace
+
+    from fimbench.metrics import stream_append_ms, stream_fold_ms, stream_query_ms, stream_readmits
+    from repro_torch.mining.stream import StreamSpec
+
+    def block(n, items):
+        out = np.full((n, 3), -1, np.int32)
+        out[:, :len(items)] = items
+        return out
+
+    # b's items are below the floor when it arrives (a hollow segment);
+    # c lifts 5 and 6 over it, so the next query prepares b again
+    a, b, c = block(100, [0, 1]), block(5, [5, 6, 7]), block(50, [5, 6])
+    eng = MiningEngine(device="cpu")
+    eng.append(a, 8, stream="s", stream_spec=StreamSpec(window_batches=3, min_sup_floor=0.2))
+    eng.append(b, stream="s")
+    assert trace.profiled() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for batch in (c, a):  # the second append expires the first a
+            eng.append(batch, stream="s")
+            eng.submit_stream(MineSpec(algorithm="hprepost", min_sup=0.2), stream="s")
+    tab = trace.profiled()
+    for name, n in (("stream.append", 2), ("stream.query", 2), ("stream.expire", 1),
+                    ("stream.readmit", 1)):
+        assert tab[name]["count"] == n, name
+    assert tab["stream.fold"]["count"] == 6  # histogram, admission, fold: each append
+    assert tab["stream.kept_items"] == {"count": 3, "total": 6}  # c, b again, a: two items each
+    assert tab["stream.readmitted_segments"] == {"count": 2, "total": 1}
+    run = SimpleNamespace(requests=[None] * 2)
+    assert stream_readmits.read(run) == 0.5
+    for metric in (stream_append_ms, stream_query_ms, stream_fold_ms):
+        assert metric.read(run) > 0
+    assert stream_query_ms.read(run) > 1e3 * tab["stream.readmit"]["total_s"] / 2

@@ -446,6 +446,12 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _rows(keep, *arrays):
+    """The rows ``keep`` selects of each of the wave planner's row-aligned
+    arrays (ranks, slots or parents, q, allowed sets)."""
+    return tuple(a[keep] for a in arrays)
+
+
 class HPrepostMiner:
     """The N-list miner on a mesh of torch devices: D data shards by M
     candidate groups. ``mesh=None`` is the 1×1 mesh on ``device`` (CUDA by
@@ -758,28 +764,63 @@ class HPrepostMiner:
         return new, [_sum_to(p, self.device, first_local=g == 0) for g, p in enumerate(parts)]
 
     @staticmethod
-    def _extensions(ranks, slots, pair_packed, prefix_packed, k_items):
-        """Candidate generation: extend each rank row with every rank
-        ``q2 < ranks[0]`` whose pairs with all members are frequent.
+    def _seed_sets(ranks, pair_packed, lower):
+        """Allowed-extension sets built from the pair table: for each rank
+        row, the ranks ``q2 < ranks[0]`` whose pairs with every member are
+        frequent — ``lower[ranks[:, 0]]`` ANDed with the other members'
+        ``pair_packed`` rows. Only the level-2 rows are seeded so; every
+        later row carries its set from its parent (``_extensions``).
 
-        Vectorized over the whole wave: the per-candidate allowed set is the
-        bitwise AND of the gathered bit-packed ``pair_ok`` rows of its
-        members, masked by the packed strict-lower-triangle prefix row of
-        its smallest rank — no per-candidate Python loop.
+        -> ``(C, Kb)`` uint8, 8 ranks a byte as ``np.packbits`` packs them."""
+        trace.count("plan.extend_seeded", len(ranks))
+        return lower[ranks[:, 0]] & np.bitwise_and.reduce(pair_packed[ranks[:, 1:]], axis=1)
 
-        -> (ranks', parents', q') with ranks' of width ``ranks.shape[1]+1``."""
+    @classmethod
+    def _level2(cls, C, min_count):
+        """The planning table and the level-2 candidates of a threshold.
+
+        ``lower[r]`` is the bit-packed set ``{q2 < r : pair_ok[r, q2]}``;
+        the candidates are the pairs ``(q, p)``, ``q < p``, with
+        ``C[q, p] >= min_count`` in row-major order, each with its seeded
+        allowed set. -> (lower, ranks, parents, q, allowed)."""
+        K = C.shape[0]
+        pair_packed = np.packbits((C + C.T) >= min_count, axis=1)
+        lower = pair_packed & np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
+        qs, ps = np.nonzero(C >= min_count)
+        ranks = np.stack([qs, ps], axis=1).astype(np.int32)  # (C, 2) ascending
+        # level-2 parents: singleton rank slots
+        return (lower, ranks, ps.astype(np.int64), qs.astype(np.int32),
+                cls._seed_sets(ranks, pair_packed, lower))
+
+    @staticmethod
+    def _extensions(ranks, slots, allowed, lower, k_items):
+        """Candidate generation: extend each rank row with every rank in its
+        allowed set ``allowed[row]`` — the ranks ``q2 < ranks[0]`` whose
+        pairs with all members are frequent.
+
+        Vectorized over the whole wave: the set bits are listed by one flat
+        scan, row-major, and each child carries its own set,
+        ``allowed[row] & lower[q2]``: the parent's set already holds the AND
+        of every member's pair row below the old smallest rank, and ``q2``
+        is below it, so only the new member's row and prefix are ANDed in.
+
+        -> (ranks', parents', q', allowed') with ranks' of width
+        ``ranks.shape[1]+1``."""
         k = ranks.shape[1]
+        trace.count("plan.extend_rows", len(ranks))
         if not len(ranks):
             return (np.empty((0, k + 1), np.int32), np.empty(0, np.int64),
-                    np.empty(0, np.int32))
-        allowed = np.bitwise_and.reduce(pair_packed[ranks], axis=1)  # (C, Kb)
-        allowed &= prefix_packed[ranks[:, 0]]
-        mask = np.unpackbits(allowed, axis=1, count=k_items).view(bool)
-        cs, q2s = np.nonzero(mask)
-        new_ranks = np.concatenate(
-            [q2s[:, None].astype(np.int32), ranks[cs]], axis=1
-        )
-        return new_ranks, slots[cs], q2s.astype(np.int32)
+                    np.empty(0, np.int32), np.empty((0, lower.shape[1]), np.uint8))
+        # a bool scan (numpy's fast path, unlike uint8) and ``np.take``
+        # (several times faster than fancy indexing on these small rows)
+        flat = np.flatnonzero(np.unpackbits(allowed, axis=1, count=k_items).view(bool))
+        cs, q2s = np.divmod(flat, k_items)
+        new_ranks = np.empty((len(cs), k + 1), np.int32)
+        new_ranks[:, 0] = q2s
+        new_ranks[:, 1:] = np.take(ranks, cs, axis=0)
+        child = np.take(allowed, cs, axis=0)
+        child &= np.take(lower, q2s, axis=0)
+        return new_ranks, np.take(slots, cs), q2s.astype(np.int32), child
 
     @staticmethod
     def _apriori_kept(d_ranks: np.ndarray, surv_ranks: np.ndarray, k_items: int):
@@ -932,13 +973,9 @@ class HPrepostMiner:
                 "re-prepare with need_waves=True to mine k >= 2"
             )
 
-        C = prepared.C
-        pair_ok = (C + C.T) >= min_count
-        # bit-packed planning tables for the vectorized _extensions:
-        # pair_packed[r] is pair_ok's row r, prefix_packed[r] the strict
-        # prefix mask {q2 : q2 < r} — both 8 ranks per byte
-        pair_packed = np.packbits(pair_ok, axis=1)
-        prefix_packed = np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
+        # level-2 candidates, each with the bit-packed set of ranks it may be
+        # extended by, which its children inherit (``_extensions``)
+        lower, ranks, parents, qarr, allowed = self._level2(prepared.C, min_count)
         # planar (3, K, W) copy of each shard's N-lists, made on its position
         # (d, 0): the wave kernel reads each candidate's (pre, post, count)
         # rows as contiguous W-wide rows
@@ -947,13 +984,9 @@ class HPrepostMiner:
                 [p.permute(2, 0, 1).contiguous() for p in prepared.packed])
         # level-2 parents: each shard's singleton counts, packed[d][..., 2]
         prev_state = [[p[2] for p in row] for row in planes]
-        qs, ps = np.nonzero(C >= min_count)
-        ranks = np.stack([qs, ps], axis=1).astype(np.int32)  # (C, 2) ascending
-        parents = ps.astype(np.int64)  # level-2 parents: singleton rank slots
-        qarr = qs.astype(np.int32)
         level = 2
         slots_per_shard = 0  # of the *previous* wave (for locality bucketing)
-        pending = None  # (ranks, slot_of, supports read) of the wave in flight
+        pending = None  # (ranks, slot_of, supports read, allowed) of the wave in flight
         # in-kernel early stop is only sound where the kernel sees *final*
         # supports: one data shard (no cross-shard sum completes them later)
         stop_count = min_count if (cfg.early_stop and self.D == 1) else 0
@@ -977,7 +1010,7 @@ class HPrepostMiner:
                             local, stop_count)
                         read = _HostRead(sups)
                     self.stage_counters["waves"] += 1
-                    dispatched = (ranks, parents, slot_of, read)
+                    dispatched = (ranks, parents, slot_of, read, allowed)
                     # per position, as the reference counts it
                     peak = max(peak, int(new_state[0][0].numel() * 4))
                     prev_state = new_state
@@ -986,13 +1019,13 @@ class HPrepostMiner:
                 if not cfg.pipeline_waves and dispatched is not None:
                     # degrade: block right away (no speculative wave in flight,
                     # so the parent column is never consulted)
-                    pending = (dispatched[0], dispatched[2], dispatched[3])
+                    pending = (dispatched[0], dispatched[2], dispatched[3], dispatched[4])
                     dispatched = None
 
                 surv_mask = None  # boolean over the settled wave's device slots
-                surv_ranks = surv_slots = None
+                surv_ranks = surv_slots = surv_allowed = None
                 if pending is not None:
-                    p_ranks, p_slots, p_read = pending
+                    p_ranks, p_slots, p_read, p_allowed = pending
                     with trace.span("mine.reduce", k=level - 1):
                         host = p_read.get()  # blocks on wave l-1 only
                     with trace.span("mine.emit"):
@@ -1005,42 +1038,43 @@ class HPrepostMiner:
                         surv_mask = np.zeros(host.shape[0], bool)
                         surv_mask[p_slots[keep]] = True
                         surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
+                        surv_allowed = p_allowed[keep]
                     pending = None
 
                 with trace.span("mine.plan"):
                     if dispatched is not None:
-                        d_ranks, d_parents, d_slot_of, d_read = dispatched
+                        d_ranks, d_parents, d_slot_of, d_read, d_allowed = dispatched
                         if surv_mask is not None:
                             # speculative wave l was enumerated before wave l-1's
                             # supports arrived; drop children of dead parents from
                             # further enumeration (their own supports self-filter)
                             kept = surv_mask[d_parents]
                             stages["host_pruned_parent"] += float((~kept).sum())
-                            d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
+                            d_ranks, d_slot_of, d_allowed = _rows(kept, d_ranks, d_slot_of,
+                                                                  d_allowed)
                             if cfg.early_stop:
                                 sub = self._apriori_kept(d_ranks, surv_ranks, K)
                                 if sub is not None:
                                     stages["host_pruned_subset"] += float((~sub).sum())
-                                    d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
-                        pending = (d_ranks, d_slot_of, d_read)
-                        ranks, parents, qarr = self._extensions(
-                            d_ranks, d_slot_of, pair_packed, prefix_packed, K
-                        )
+                                    d_ranks, d_slot_of, d_allowed = _rows(
+                                        sub, d_ranks, d_slot_of, d_allowed)
+                        pending = (d_ranks, d_slot_of, d_read, d_allowed)
+                        ranks, parents, qarr, allowed = self._extensions(
+                            d_ranks, d_slot_of, d_allowed, lower, K)
                     elif surv_mask is not None and not cfg.pipeline_waves:
-                        ranks, parents, qarr = self._extensions(
-                            surv_ranks, surv_slots, pair_packed, prefix_packed, K
-                        )
+                        ranks, parents, qarr, allowed = self._extensions(
+                            surv_ranks, surv_slots, surv_allowed, lower, K)
                         if cfg.early_stop and len(ranks):
                             # un-pipelined, the closure check lands *before* dispatch:
                             # doomed candidates never ship to the device at all
                             sub = self._apriori_kept(ranks, surv_ranks, K)
                             if sub is not None:
                                 stages["host_pruned_subset"] += float((~sub).sum())
-                                ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
+                                ranks, parents, qarr, allowed = _rows(sub, ranks, parents,
+                                                                      qarr, allowed)
                     else:
-                        ranks = np.empty((0, 2), np.int32)
-                        parents = np.empty(0, np.int64)
-                        qarr = np.empty(0, np.int32)
+                        ranks, parents, qarr, allowed = _rows(slice(0), ranks, parents, qarr,
+                                                              allowed)
 
             stages["mining_waves"] = time.perf_counter() - t0
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
@@ -1158,17 +1192,11 @@ class HPrepostMiner:
                     bool, len(cand),
                 )
 
-        pair_ok = (C + C.T) >= min_count
-        pair_packed = np.packbits(pair_ok, axis=1)
-        prefix_packed = np.packbits(np.tri(K, K, -1, dtype=bool), axis=1)
+        lower, ranks, parents, qarr, allowed = self._level2(C, min_count)
         executor.begin()
-        qs, ps = np.nonzero(C >= min_count)
-        ranks = np.stack([qs, ps], axis=1).astype(np.int32)
-        parents = ps.astype(np.int64)
-        qarr = qs.astype(np.int32)
         level = 2
         slots_per_shard = 0
-        pending = None  # (ranks, slot_of, token) of the wave in flight
+        pending = None  # (ranks, slot_of, token, allowed) of the wave in flight
 
         t0 = time.perf_counter()
         while len(ranks) or pending is not None:
@@ -1176,7 +1204,7 @@ class HPrepostMiner:
                 km = seed_keep(ranks)
                 if not km.all():
                     stages["host_pruned_seed"] += float((~km).sum())
-                    ranks, parents, qarr = ranks[km], parents[km], qarr[km]
+                    ranks, parents, qarr, allowed = _rows(km, ranks, parents, qarr, allowed)
             dispatched = None
             if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
                 idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
@@ -1186,18 +1214,18 @@ class HPrepostMiner:
                                 segments=executor.n_segments):
                     token = executor.dispatch(level, idx, self._group_live(slot_of, Cpad),
                                               level > 2 and cfg.locality_dispatch)
-                dispatched = (ranks, parents, slot_of, token)
+                dispatched = (ranks, parents, slot_of, token, allowed)
                 peak = max(peak, int(executor.state_bytes))
                 slots_per_shard = Cpad // self._Mb
                 level += 1
             if not cfg.pipeline_waves and dispatched is not None:
-                pending = (dispatched[0], dispatched[2], dispatched[3])
+                pending = (dispatched[0], dispatched[2], dispatched[3], dispatched[4])
                 dispatched = None
 
             surv_mask = None
-            surv_ranks = surv_slots = None
+            surv_ranks = surv_slots = surv_allowed = None
             if pending is not None:
-                p_ranks, p_slots, p_token = pending
+                p_ranks, p_slots, p_token, p_allowed = pending
                 # the streaming reduce: per-candidate supports summed over
                 # segments (additivity over disjoint partitions), THEN
                 # thresholded — this blocks on the settled wave
@@ -1219,36 +1247,34 @@ class HPrepostMiner:
                 surv_mask = np.zeros(host.shape[0], bool)
                 surv_mask[p_slots[keep]] = True
                 surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
+                surv_allowed = p_allowed[keep]
                 pending = None
 
             if dispatched is not None:
-                d_ranks, d_parents, d_slot_of, d_token = dispatched
+                d_ranks, d_parents, d_slot_of, d_token, d_allowed = dispatched
                 if surv_mask is not None:
                     kept = surv_mask[d_parents]
                     stages["host_pruned_parent"] += float((~kept).sum())
-                    d_ranks, d_slot_of = d_ranks[kept], d_slot_of[kept]
+                    d_ranks, d_slot_of, d_allowed = _rows(kept, d_ranks, d_slot_of, d_allowed)
                     if cfg.early_stop:
                         sub = self._apriori_kept(d_ranks, surv_ranks, K)
                         if sub is not None:
                             stages["host_pruned_subset"] += float((~sub).sum())
-                            d_ranks, d_slot_of = d_ranks[sub], d_slot_of[sub]
-                pending = (d_ranks, d_slot_of, d_token)
-                ranks, parents, qarr = self._extensions(
-                    d_ranks, d_slot_of, pair_packed, prefix_packed, K
-                )
+                            d_ranks, d_slot_of, d_allowed = _rows(sub, d_ranks, d_slot_of,
+                                                                  d_allowed)
+                pending = (d_ranks, d_slot_of, d_token, d_allowed)
+                ranks, parents, qarr, allowed = self._extensions(
+                    d_ranks, d_slot_of, d_allowed, lower, K)
             elif surv_mask is not None and not cfg.pipeline_waves:
-                ranks, parents, qarr = self._extensions(
-                    surv_ranks, surv_slots, pair_packed, prefix_packed, K
-                )
+                ranks, parents, qarr, allowed = self._extensions(
+                    surv_ranks, surv_slots, surv_allowed, lower, K)
                 if cfg.early_stop and len(ranks):
                     sub = self._apriori_kept(ranks, surv_ranks, K)
                     if sub is not None:
                         stages["host_pruned_subset"] += float((~sub).sum())
-                        ranks, parents, qarr = ranks[sub], parents[sub], qarr[sub]
+                        ranks, parents, qarr, allowed = _rows(sub, ranks, parents, qarr, allowed)
             else:
-                ranks = np.empty((0, 2), np.int32)
-                parents = np.empty(0, np.int64)
-                qarr = np.empty(0, np.int32)
+                ranks, parents, qarr, allowed = _rows(slice(0), ranks, parents, qarr, allowed)
 
         stages["mining_waves"] = time.perf_counter() - t0
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)

@@ -305,3 +305,76 @@ def test_planted_subset_prune_parity(mesh11, n_filler, pipeline):
     # check_parity held the port's count to this reference's
     assert _pair(mesh11, **cfg)[0].last_stage_times["host_pruned_subset"] > 0
     assert ("plan.subset_multiword" in tab) == (n_filler > 0)
+
+
+def _allowed_by_definition(ranks, pair_ok):
+    """Each rank row's allowed set, unpacked, from its definition: the ranks
+    below its smallest whose pairs with every member are frequent."""
+    below = np.arange(pair_ok.shape[0]) < ranks[:, :1]
+    return np.logical_and.reduce(pair_ok[ranks], axis=1) & below
+
+
+def _check_extension_step(ranks, slots, allowed, pair_ok, lower):
+    """One ``_extensions`` call against the reference's: identical ranks,
+    parents and q in the same order, and every child's carried set equal
+    to the one its definition gives. -> (ranks', parents', allowed')."""
+    K = pair_ok.shape[0]
+    got = HPrepostMiner._extensions(ranks, slots, allowed, lower, K)
+    want = JMiner._extensions(ranks, slots, np.packbits(pair_ok, axis=1),
+                              np.packbits(np.tri(K, K, -1, dtype=bool), axis=1), K)
+    for g, w in zip(got[:3], want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    assert got[3].dtype == np.uint8 and got[3].shape == (len(got[0]), lower.shape[1])
+    np.testing.assert_array_equal(np.unpackbits(got[3], axis=1, count=K).view(bool),
+                                  _allowed_by_definition(got[0], pair_ok))
+    return got[0], got[1], got[3]
+
+
+@pytest.mark.parametrize("mode, k_items", [("empty", 85)] + [
+    (mode, k) for mode in ("widths", "chain") for k in (1, 7, 8, 63, 64, 65, 85, 130, 292)])
+def test_extension_step_carries_allowed_sets(mode, k_items):
+    """Candidate generation from carried allowed-sets against the
+    reference's k-way AND: random pair tables at K on either side of a
+    byte and a word; ``widths`` extends random rows of widths 2–9 seeded
+    from the pair table; ``chain`` extends the level-2 rows three levels
+    deep, filtering rows and sets between levels as the dead-parent prune
+    and the subset check do."""
+    rng = np.random.default_rng(k_items)
+    pair_ok = np.triu(rng.random((k_items, k_items)) < 0.85, 1)
+    pair_ok |= pair_ok.T
+    C = np.triu(pair_ok, 1).astype(np.int64)
+    lower, ranks, parents, qarr, allowed = HPrepostMiner._level2(C, 1)
+    qs, ps = np.nonzero(C >= 1)
+    np.testing.assert_array_equal(ranks, np.stack([qs, ps], axis=1))
+    np.testing.assert_array_equal(parents, ps)
+    np.testing.assert_array_equal(qarr, qs)
+    np.testing.assert_array_equal(np.unpackbits(allowed, axis=1, count=k_items).view(bool),
+                                  _allowed_by_definition(ranks, pair_ok))
+    if mode == "empty":
+        for width in (2, 5):
+            out = _check_extension_step(np.empty((0, width), np.int32), np.empty(0, np.int64),
+                                        allowed[:0], pair_ok, lower)
+            assert out[0].shape == (0, width + 1)
+        nothing = HPrepostMiner._level2(np.zeros_like(C), 1)
+        assert all(len(a) == 0 for a in nothing[1:])
+    elif mode == "widths":
+        pair_packed = np.packbits(pair_ok, axis=1)
+        for width in range(2, min(9, k_items) + 1):
+            rows = np.sort(rng.permuted(np.tile(np.arange(k_items, dtype=np.int32), (40, 1)),
+                                        axis=1)[:, :width], axis=1)
+            sets = HPrepostMiner._seed_sets(rows, pair_packed, lower)
+            np.testing.assert_array_equal(np.unpackbits(sets, axis=1, count=k_items).view(bool),
+                                          _allowed_by_definition(rows, pair_ok))
+            _check_extension_step(rows, rng.permutation(40).astype(np.int64), sets, pair_ok,
+                                  lower)
+    else:
+        for _ in range(3):
+            # the dead-parent prune and the subset check drop rows with their
+            # sets; the survivors get fresh slots as ``_pack_wave`` gives them
+            keep = rng.random(len(ranks)) < min(1.0, 150 / max(len(ranks), 1))
+            ranks, allowed = ranks[keep], allowed[keep]
+            slots = rng.permutation(len(ranks)).astype(np.int64)
+            ranks, _, allowed = _check_extension_step(ranks, slots, allowed, pair_ok, lower)
+        if k_items >= 8:
+            assert len(ranks) and ranks.shape[1] == 5

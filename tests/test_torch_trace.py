@@ -232,6 +232,44 @@ def test_subset_check_counters_under_the_profiler_and_off():
     assert tab["plan.subset_multiword"] == {"count": 1, "total": 1}
 
 
+@pytest.mark.parametrize("path", ["pipelined", "unpipelined", "segmented"])
+def test_extension_counters_seed_level_two_only(path):
+    """``plan.extend_rows`` counts the rows each ``_extensions`` call extends,
+    ``plan.extend_seeded`` the rows whose allowed set was built from the pair
+    table: only the level-2 candidates (the frequent pairs, as ``C`` holds
+    exact pair supports), once a mine; every deeper row carries its set, on
+    both wave loops, pipelined or not. With no profiler they leave no row."""
+    from repro_torch.mining.stream import StreamSpec
+
+    # dense rows: width 6 is frequent, and both prunes drop rows with their sets
+    rows, n_items = random_db(np.random.default_rng(5), 200, 8, 8), 8
+    spec = MineSpec(algorithm="hprepost", min_sup=0.175)
+    if path == "segmented":
+        eng = MiningEngine(device="cpu")
+        for part in np.array_split(rows, 3):
+            eng.append(part, n_items, stream="s", stream_spec=StreamSpec(window_batches=3))
+
+        def run():
+            return eng.submit_stream(spec, stream="s")
+    else:
+        miner = HPrepostMiner("cpu", config=HPrepostConfig(
+            candidate_unit=4, pipeline_waves=path == "pipelined"))
+
+        def run():
+            return miner.mine(rows, n_items, 35)
+
+    run()
+    assert trace.profiled() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = run()
+    tab = trace.profiled()
+    pairs = sum(len(s) == 2 for s in res.itemsets)
+    assert max(len(s) for s in res.itemsets) >= 4  # rows of width 3 were extended
+    assert tab["plan.extend_seeded"] == {"count": 1, "total": pairs}
+    assert tab["plan.extend_rows"]["count"] >= 2
+    assert tab["plan.extend_rows"]["total"] > pairs
+
+
 def test_stream_spans_and_counters_under_the_profiler():
     """On a floored stream an append records ``stream.fold`` and, when a
     batch expires, ``stream.expire``; a query that prepares a segment again

@@ -1149,7 +1149,8 @@ def stream_phase(K, data, host, smi: str):
         cooc.update(measured_extras(extras))
         del ranked, wr, lut
         h = psm.db.handles()[0]
-        planes, single = h.planes[0], h.singleton[0]  # the one data shard
+        planes = h.planes[0]  # the one data shard
+        single = planes[2]
         qs, ps = np.nonzero(C >= mc)
         ranks = np.stack([qs, ps], axis=1).astype(np.int32)
         idx, _, _ = psm.miner._pack_wave(ranks, ps.astype(np.int64), qs.astype(np.int32))

@@ -244,29 +244,36 @@ class SegmentHandle:
     ``planes[d]`` are data shard d's N-lists as the wave kernel reads them,
     ``(3, K_s + 1, W_s)`` int32 (pre, post, count) on the miner's position
     (d, 0), with one all-padding *sentinel* rank row at index ``K_s``
-    (``extend_with_sentinel``); ``singleton[d]`` is ``planes[d][2]``.
-    ``g2l`` maps every global stream rank to the segment's local rank, with
-    ranks absent from the segment mapped to the sentinel. The wave kernel
-    cuts every list at its padding, so the sentinel row is an empty N-list:
-    a candidate touching an item the segment never saw reports support 0
-    there — precisely its contribution to the global (additive) support.
+    (``extend_with_sentinel``); ``planes[d][2]`` are the level-2 singleton
+    states. ``g2l`` maps every global stream rank to the segment's local
+    rank, with ranks absent from the segment mapped to the sentinel. The
+    wave kernel cuts every list at its padding, so the sentinel row is an
+    empty N-list: a candidate touching an item the segment never saw
+    reports support 0 there — precisely its contribution to the global
+    (additive) support.
     (The reference's handle holds the same rows as a ``(D, K_s + 1, W_s,
     3)`` buffer.)
+
+    ``g2l=None`` is the identity: a prepared database's own ``(3, K, W)``
+    planes in its own rank space, with no sentinel row (``mine_prepared``).
 
     ``ready``: ``(device, event)`` pairs recorded after the planes were
     built, when they were built on other streams than the queries' (a
     compaction's); None otherwise."""
 
     planes: tuple  # per data shard: (3, K_s + 1, W_s) device N-lists incl. the sentinel row
-    singleton: tuple  # per data shard: planes[d][2], the level-2 bootstrap
-    g2l: np.ndarray  # (K_global,) int32: stream rank -> local rank | K_s
+    g2l: np.ndarray | None  # (K_global,) int32: stream rank -> local rank | K_s; None: identity
     ready: Any = None
 
 
 class LocalSegmentExecutor:
-    """Runs planned waves over in-process segment handles — the execution
-    half of ``mine_prepared_segments``, split from the planning loop so a
-    coordinator can swap in a remote executor without touching the planner.
+    """Runs planned waves in this process — the execution half of the one
+    wave loop (``HPrepostMiner._run_waves``), split from the planning so
+    that each caller hands the planner its own executor. Three implement
+    the contract: this class over one prepared database's planes
+    (``mine_prepared``) or over segment handles (``mine_prepared_segments``),
+    and the coordinator's ``RemoteSegmentExecutor`` over worker processes,
+    each of which runs this class over its own segments.
 
     Contract (the reference's, with the port's wave layout):
 
@@ -281,14 +288,15 @@ class LocalSegmentExecutor:
         group g in columns ``[g·Cs, (g+1)·Cs)``, ``live`` each group's live
         slots (a prefix of the group) and ``local`` whether parents are
         read in their own group (locality dispatch) or gathered from every
-        group (the shuffle). Returns an opaque token and does not block on
-        device results (pipelining). No in-kernel early stop: segmented
-        supports are partial until the cross-segment reduce, so masking
-        against the global threshold would be unsound — every segment wave
-        runs B1, and host-side pruning carries the early-stop win.
+        group (the shuffle). Fires ``failures`` site ``mine.wave`` and
+        counts the wave in ``stage_counters``. Returns an opaque token and
+        does not block on device results (pipelining). B2 (early stop at
+        ``stop_count`` > 0) runs only where the kernel sees final supports,
+        one prepared database on one data shard; segment waves run B1, as
+        their supports are partial until the cross-segment reduce.
       - ``collect(token)``: block, and return the per-candidate supports
-        summed over this executor's segments as an int64 host vector —
-        the paper's reduce step. With ``weights`` the reduce is instead the
+        summed over this executor's segments as a host vector — the
+        paper's reduce step. With ``weights`` the reduce is instead the
         float64 weighted sum ``Σ w_s · sup_s`` (time-decayed supports: the
         per-segment integer supports stay exact on the device; damping
         happens only in this host reduce).
@@ -300,7 +308,7 @@ class LocalSegmentExecutor:
     """
 
     def __init__(self, miner: "HPrepostMiner", handles: "list[SegmentHandle]",
-                 weights=None):
+                 weights=None, stop_count: int = 0):
         self.miner = miner
         self.handles = list(handles)
         if weights is not None:
@@ -310,6 +318,7 @@ class LocalSegmentExecutor:
                     f"{len(weights)} segment weights for {len(self.handles)} handles"
                 )
         self.weights = weights
+        self.stop_count = stop_count
         self._planes: list | None = None
         self._prev: list | None = None
         self.state_bytes = 0
@@ -337,17 +346,18 @@ class LocalSegmentExecutor:
         failures.fire("mine.wave")
         new_states, parts = [], []
         for h, planes, prev in zip(self.handles, self._planes, self._prev):
-            # level-2 parents are singleton ranks (per-segment rows); later
-            # levels read the parent state by global slot, shared by layout
-            ix = np.stack([h.g2l[idx[0]] if level == 2 else idx[0],
-                           h.g2l[idx[1]], h.g2l[idx[2]]]).astype(np.int64)
-            new_s, sups = m._mesh_wave(planes, prev, ix, live, level, local, 0)
+            ix = idx
+            if h.g2l is not None:
+                # level-2 parents are singleton ranks (per-segment rows); later
+                # levels read the parent state by global slot, shared by layout
+                ix = np.stack([h.g2l[idx[0]] if level == 2 else idx[0],
+                               h.g2l[idx[1]], h.g2l[idx[2]]]).astype(np.int64)
+            new_s, sups = m._mesh_wave(planes, prev, ix, live, level, local, self.stop_count)
             new_states.append(new_s)
             parts.extend(sups)
         m.stage_counters["waves"] += 1
-        m.stage_counters["seg_waves"] = (
-            m.stage_counters.get("seg_waves", 0) + len(self.handles)
-        )
+        if self.handles[0].g2l is not None:
+            m.stage_counters["seg_waves"] = m.stage_counters.get("seg_waves", 0) + self.n_segments
         self._prev = new_states
         self.state_bytes = sum(int(s[0][0].numel() * 4) for s in new_states)
         # one read of every segment's supports: (S, Cpad) on the host
@@ -357,7 +367,15 @@ class LocalSegmentExecutor:
         stacked = token.get()
         if self.weights is not None:
             return np.tensordot(self.weights, stacked.astype(np.float64), axes=1)
+        if len(stacked) == 1:
+            return stacked[0]  # one handle's supports are the sum: no copy
         return np.sum(stacked, axis=0, dtype=np.int64)
+
+
+# a mine's ``last_stage_times``: prep and wave seconds, and the planning counters
+# (candidates shipped, and killed on the host by a dead parent or a subset)
+_STAGES = ("job1_flist", "job2_ppc_pack", "f2_scan", "mining_waves",
+           "planned_candidates", "host_pruned_parent", "host_pruned_subset")
 
 
 def _pow2(n: int) -> int:
@@ -387,11 +405,11 @@ def pack_nlists_torch(item, count, pre, post, k: int, width: int) -> torch.Tenso
 
 class _HostRead:
     """Device vectors copied back without blocking the caller, concatenated
-    in order (and reshaped to ``shape``): on CUDA non-blocking copies into
+    in order and reshaped to ``shape``: on CUDA non-blocking copies into
     one pinned buffer plus an event per device, so ``get`` waits for the
     work before the copies only — never for waves dispatched after them."""
 
-    def __init__(self, parts, shape=None):
+    def __init__(self, parts, shape):
         self._shape = shape
         self._events = []
         if parts[0].is_cuda:
@@ -411,8 +429,7 @@ class _HostRead:
     def get(self) -> np.ndarray:
         for ev in self._events:
             ev.synchronize()
-        out = self._host.numpy()
-        return out if self._shape is None else out.reshape(self._shape)
+        return self._host.numpy().reshape(self._shape)
 
 
 def _sum_to(parts, device: torch.device, first_local: bool = True) -> torch.Tensor:
@@ -913,16 +930,15 @@ class HPrepostMiner:
         trace.count("plan.subset_rows", tested)
         return kept
 
-    def mine_prepared(
-        self,
-        prepared: PreparedDB,
-        min_count: int,
-        *,
-        max_k: int | None | type(Ellipsis) = ...,
-    ) -> PrepostResult:
-        """The k>2 wave loop only, over a shared ``PreparedDB``. Any
-        ``min_count >= prepared.min_count_floor`` is served exactly: floor
-        structures are supersets, N-list supports are exact DB supports.
+    def _run_waves(self, executor, items_arr: np.ndarray, C: np.ndarray, min_count,
+                   itemsets: dict, peak: int, max_k, *, as_sup=int, seed=None,
+                   seed_out=None, segmented: bool = False) -> int:
+        """The k>2 wave loop, the only one: plans each wave on the host, runs
+        it through ``executor`` (``LocalSegmentExecutor``'s contract, begun)
+        and adds each settled frequent itemset of ``items_arr``' ids, its
+        support cast by ``as_sup``, to ``itemsets``; ``C`` is the
+        upper-triangular F2 matrix in that rank space. -> ``peak`` raised
+        to the executor's state bytes.
 
         With ``cfg.pipeline_waves`` the loop dispatches wave ``l+1`` before
         blocking on wave ``l``'s supports, so host candidate generation
@@ -931,89 +947,50 @@ class HPrepostMiner:
         below ``min_count`` themselves (anti-monotonicity), so they can
         never be emitted; once the parent wave's supports arrive, the dead
         branches are pruned from further host enumeration.
-        """
-        cfg = self.cfg
-        max_k = cfg.max_k if max_k is ... else max_k
-        if not prepared.support_ordered:
-            raise ValueError(
-                "PreparedDB was built with an imposed (stream-order) F-list; "
-                "its F-list is not a support-descending prefix structure — "
-                "mine it through mine_prepared_segments"
-            )
-        if min_count < prepared.min_count_floor:
-            raise ValueError(
-                f"min_count={min_count} is looser than the PreparedDB floor "
-                f"{prepared.min_count_floor}; re-prepare at the looser threshold"
-            )
-        fl = prepared.fl
-        K = fl.k
-        stages = self.last_stage_times = {
-            "job1_flist": 0.0, "job2_ppc_pack": 0.0, "f2_scan": 0.0,
-            "mining_waves": 0.0,
-            # planning counters ride the stage dict into MineResult
-            # stage_times_s: candidates shipped, and candidates the host
-            # bound killed (dead parent / missing Apriori subset)
-            "planned_candidates": 0.0,
-            "host_pruned_parent": 0.0, "host_pruned_subset": 0.0,
-        }
-        itemsets: dict[tuple[int, ...], int] = {}
-        k_act = prepared.k_active(min_count)
-        items_arr = np.asarray(fl.items)
-        for it, s in zip(
-            items_arr[:k_act].tolist(), np.asarray(fl.supports)[:k_act].tolist()
-        ):
-            itemsets[(int(it),)] = int(s)
-        flist_items = fl.items[:k_act]
-        peak = prepared.bytes_at(min_count, self.D)
-        if K == 0 or max_k == 1 or not itemsets:
-            return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
-        if prepared.f1_only:
-            raise ValueError(
-                "PreparedDB was built with need_waves=False (F1 only); "
-                "re-prepare with need_waves=True to mine k >= 2"
-            )
 
+        ``seed``, a dict of per-itemset support *upper bounds*, drops each
+        candidate whose bound misses ``min_count`` (provably infrequent)
+        before dispatch, with its subtree (``host_pruned_seed``); one absent
+        from it is kept. ``seed_out``, if a dict, collects the reduced
+        support of every candidate settled, frequent or not. ``segmented``
+        tags each ``mine.wave`` span with the executor's segment count."""
+        cfg = self.cfg
+        stages = self.last_stage_times
+        K = len(items_arr)
+        wave_args = {"segments": executor.n_segments} if segmented else {}
         # level-2 candidates, each with the bit-packed set of ranks it may be
         # extended by, which its children inherit (``_extensions``)
-        lower, ranks, parents, qarr, allowed = self._level2(prepared.C, min_count)
-        # planar (3, K, W) copy of each shard's N-lists, made on its position
-        # (d, 0): the wave kernel reads each candidate's (pre, post, count)
-        # rows as contiguous W-wide rows
-        with trace.span("mine.planes"):
-            planes = self._position_planes(
-                [p.permute(2, 0, 1).contiguous() for p in prepared.packed])
-        # level-2 parents: each shard's singleton counts, packed[d][..., 2]
-        prev_state = [[p[2] for p in row] for row in planes]
+        lower, ranks, parents, qarr, allowed = self._level2(C, min_count)
         level = 2
         slots_per_shard = 0  # of the *previous* wave (for locality bucketing)
-        pending = None  # (ranks, slot_of, supports read, allowed) of the wave in flight
-        # in-kernel early stop is only sound where the kernel sees *final*
-        # supports: one data shard (no cross-shard sum completes them later)
-        stop_count = min_count if (cfg.early_stop and self.D == 1) else 0
+        pending = None  # (ranks, slot_of, token, allowed) of the wave in flight
 
         # the span holds exactly the region the stage times
         with trace.span("mine.waves"):
             t0 = time.perf_counter()
             while len(ranks) or pending is not None:
+                if seed is not None and len(ranks):
+                    with trace.span("mine.plan"):
+                        cand = np.sort(items_arr[ranks], axis=1)
+                        km = np.fromiter((seed.get(tuple(t), min_count) >= min_count
+                                          for t in cand.tolist()), bool, len(cand))
+                        if not km.all():
+                            stages["host_pruned_seed"] += float((~km).sum())
+                            ranks, parents, qarr, allowed = _rows(km, ranks, parents, qarr,
+                                                                  allowed)
                 dispatched = None
                 if (len(ranks) and (max_k is None or level <= max_k)
                         and len(itemsets) < cfg.max_itemsets):
                     with trace.span("mine.plan"):
                         idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
                                                              slots_per_shard)
-                    local = level > 2 and cfg.locality_dispatch
                     stages["planned_candidates"] += float(len(ranks))
-                    failures.fire("mine.wave")
-                    with trace.span("mine.wave", k=level, candidates=len(ranks)):
-                        new_state, sups = self._mesh_wave(
-                            planes, prev_state, idx, self._group_live(slot_of, Cpad), level,
-                            local, stop_count)
-                        read = _HostRead(sups)
-                    self.stage_counters["waves"] += 1
-                    dispatched = (ranks, parents, slot_of, read, allowed)
+                    with trace.span("mine.wave", k=level, candidates=len(ranks), **wave_args):
+                        token = executor.dispatch(level, idx, self._group_live(slot_of, Cpad),
+                                                  level > 2 and cfg.locality_dispatch)
+                    dispatched = (ranks, parents, slot_of, token, allowed)
                     # per position, as the reference counts it
-                    peak = max(peak, int(new_state[0][0].numel() * 4))
-                    prev_state = new_state
+                    peak = max(peak, int(executor.state_bytes))
                     slots_per_shard = Cpad // self._Mb
                     level += 1
                 if not cfg.pipeline_waves and dispatched is not None:
@@ -1025,16 +1002,25 @@ class HPrepostMiner:
                 surv_mask = None  # boolean over the settled wave's device slots
                 surv_ranks = surv_slots = surv_allowed = None
                 if pending is not None:
-                    p_ranks, p_slots, p_read, p_allowed = pending
+                    p_ranks, p_slots, p_token, p_allowed = pending
+                    # the reduce: supports summed over segments (additive over
+                    # disjoint partitions), THEN thresholded; blocks on wave l-1
                     with trace.span("mine.reduce", k=level - 1):
-                        host = p_read.get()  # blocks on wave l-1 only
+                        host = executor.collect(p_token)
+                    peak = max(peak, int(executor.state_bytes))
                     with trace.span("mine.emit"):
                         svals = host[p_slots]
                         keep = svals >= min_count
+                        if seed_out is not None and len(p_ranks):
+                            # settled supports of EVERY candidate (dead ones
+                            # included — what the next refresh's seed prunes)
+                            all_items = np.sort(items_arr[p_ranks], axis=1)
+                            for t, s in zip(all_items.tolist(), svals.tolist()):
+                                seed_out[tuple(t)] = as_sup(s)
                         if keep.any():
                             emit_items = np.sort(items_arr[p_ranks[keep]], axis=1)
                             for t, s in zip(emit_items.tolist(), svals[keep].tolist()):
-                                itemsets[tuple(t)] = int(s)
+                                itemsets[tuple(t)] = as_sup(s)
                         surv_mask = np.zeros(host.shape[0], bool)
                         surv_mask[p_slots[keep]] = True
                         surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
@@ -1043,7 +1029,7 @@ class HPrepostMiner:
 
                 with trace.span("mine.plan"):
                     if dispatched is not None:
-                        d_ranks, d_parents, d_slot_of, d_read, d_allowed = dispatched
+                        d_ranks, d_parents, d_slot_of, d_token, d_allowed = dispatched
                         if surv_mask is not None:
                             # speculative wave l was enumerated before wave l-1's
                             # supports arrived; drop children of dead parents from
@@ -1058,7 +1044,7 @@ class HPrepostMiner:
                                     stages["host_pruned_subset"] += float((~sub).sum())
                                     d_ranks, d_slot_of, d_allowed = _rows(
                                         sub, d_ranks, d_slot_of, d_allowed)
-                        pending = (d_ranks, d_slot_of, d_read, d_allowed)
+                        pending = (d_ranks, d_slot_of, d_token, d_allowed)
                         ranks, parents, qarr, allowed = self._extensions(
                             d_ranks, d_slot_of, d_allowed, lower, K)
                     elif surv_mask is not None and not cfg.pipeline_waves:
@@ -1077,6 +1063,60 @@ class HPrepostMiner:
                                                               allowed)
 
             stages["mining_waves"] = time.perf_counter() - t0
+        return peak
+
+    def mine_prepared(
+        self,
+        prepared: PreparedDB,
+        min_count: int,
+        *,
+        max_k: int | None | type(Ellipsis) = ...,
+    ) -> PrepostResult:
+        """Mine a shared ``PreparedDB``: its F1, then the wave loop
+        (``_run_waves``) over a ``LocalSegmentExecutor`` of one identity
+        handle on its planes. Any ``min_count >=
+        prepared.min_count_floor`` is served exactly: floor structures are
+        supersets, N-list supports are exact DB supports. On one data shard
+        with ``cfg.early_stop`` every wave runs the early-stop kernel (B2)
+        at ``min_count``: its supports are final there."""
+        cfg = self.cfg
+        max_k = cfg.max_k if max_k is ... else max_k
+        if not prepared.support_ordered:
+            raise ValueError(
+                "PreparedDB was built with an imposed (stream-order) F-list; "
+                "its F-list is not a support-descending prefix structure — "
+                "mine it through mine_prepared_segments"
+            )
+        if min_count < prepared.min_count_floor:
+            raise ValueError(
+                f"min_count={min_count} is looser than the PreparedDB floor "
+                f"{prepared.min_count_floor}; re-prepare at the looser threshold"
+            )
+        fl = prepared.fl
+        self.last_stage_times = dict.fromkeys(_STAGES, 0.0)
+        k_act = prepared.k_active(min_count)
+        items_arr = np.asarray(fl.items)
+        itemsets = {(int(it),): int(s) for it, s in zip(
+            items_arr[:k_act].tolist(), np.asarray(fl.supports)[:k_act].tolist())}
+        flist_items = fl.items[:k_act]
+        peak = prepared.bytes_at(min_count, self.D)
+        if max_k == 1 or not itemsets:
+            return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
+        if prepared.f1_only:
+            raise ValueError(
+                "PreparedDB was built with need_waves=False (F1 only); "
+                "re-prepare with need_waves=True to mine k >= 2"
+            )
+        # planar (3, K, W) copy of each shard's N-lists, made on its position
+        # (d, 0): the wave kernel reads each candidate's (pre, post, count)
+        # rows as contiguous W-wide rows
+        with trace.span("mine.planes"):
+            planes = tuple(p.permute(2, 0, 1).contiguous() for p in prepared.packed)
+            executor = LocalSegmentExecutor(
+                self, [SegmentHandle(planes, None)],
+                stop_count=min_count if (cfg.early_stop and self.D == 1) else 0)
+            executor.begin()
+        peak = self._run_waves(executor, items_arr, prepared.C, min_count, itemsets, peak, max_k)
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
 
     def extend_with_sentinel(self, prepared: PreparedDB, shard: int = 0):
@@ -1112,43 +1152,36 @@ class HPrepostMiner:
         seed=None,
         seed_out=None,
     ) -> PrepostResult:
-        """The k>2 wave loop over a *segmented* database (the streaming
-        reduce step): candidates are planned once against the global
-        F-lists (``items``/``supports`` in stream-rank order, ``C`` the
-        summed upper-triangular F2 matrix in the same rank space), each
-        wave launches the fused intersect kernel (B1) once per segment per
-        mesh position, and the per-candidate supports are summed across segments before
-        thresholding — exact because segments partition the transactions,
-        so itemset supports are additive over them.
+        """Mine a *segmented* database (the streaming reduce step): its F1
+        from ``items``/``supports`` (the global F-lists in stream-rank
+        order), then the wave loop (``_run_waves``) planned once against
+        ``C`` (the summed upper-triangular F2 matrix in the same rank
+        space), each wave launching the fused intersect kernel (B1) once
+        per segment per mesh position, and the per-candidate supports
+        summed across segments before thresholding — exact because
+        segments partition the transactions, so itemset supports are
+        additive over them.
 
         Every segment carries its own merged-N-list state chain between
         waves (a segment is one partition's PPC forest); the *slot* layout
         (``_pack_wave``) is global and shared, so parent reads at levels > 2
         need no per-segment translation — only base/extension item indices
         (and the level-2 singleton parents) route through each segment's
-        ``g2l``. Pipelining semantics match ``mine_prepared``.
+        ``g2l``.
 
         ``executor`` abstracts *where* waves run: the default
         ``LocalSegmentExecutor(self, handles)`` executes them in-process.
 
-        ``weights`` (or an executor carrying a ``weights`` attribute)
-        switches the cross-segment reduce to the float64 weighted sum of
-        time-decayed mining: ``supports``/``C``/``min_count`` are then read
-        as float accumulations and emitted supports are floats; the
-        per-segment device path is untouched (integer-exact), only the host
-        reduce and threshold run in float.
+        ``weights`` (or an executor carrying them) makes the reduce the
+        float64 weighted sum of time-decayed mining (``collect``):
+        ``supports``/``C``/``min_count`` are then float accumulations and
+        emitted supports floats; the device path stays integer-exact.
 
-        ``seed`` prunes with a standing query's previous waves (exact
-        integer mode only): a dict of per-itemset support *upper bounds*.
-        A candidate whose bound misses ``min_count`` is provably infrequent
-        and is dropped before dispatch (``host_pruned_seed``) along with the
-        whole subtree it would have opened; a candidate absent from the seed
-        is always kept, so the answer is bit-identical to an unseeded mine.
-        ``seed_out``, if a dict, collects the exact reduced support of every
-        candidate this mine settles (frequent or not).
-        """
-        cfg = self.cfg
-        max_k = cfg.max_k if max_k is ... else max_k
+        ``seed``/``seed_out`` are a standing query's prune by its previous
+        waves' support bounds and the settled supports for the next one
+        (``_run_waves``; exact integer mode only): the answer is
+        bit-identical to an unseeded mine."""
+        max_k = self.cfg.max_k if max_k is ... else max_k
         items_arr = np.asarray(items, np.int32)
         if executor is None:
             executor = LocalSegmentExecutor(self, handles, weights=weights)
@@ -1159,15 +1192,7 @@ class HPrepostMiner:
         weighted = getattr(executor, "weights", None) is not None
         supports = np.asarray(supports, np.float64 if weighted else np.int64)
         as_sup = float if weighted else int
-        K = len(items_arr)
-        stages = self.last_stage_times = {
-            "job1_flist": 0.0, "job2_ppc_pack": 0.0, "f2_scan": 0.0,
-            "mining_waves": 0.0,
-            "planned_candidates": 0.0,
-            "host_pruned_parent": 0.0, "host_pruned_subset": 0.0,
-            "host_pruned_seed": 0.0,
-        }
-        itemsets: dict[tuple[int, ...], int] = {}
+        self.last_stage_times = dict.fromkeys(_STAGES + ("host_pruned_seed",), 0.0)
         freq = supports >= min_count
         # result F-list stays support-descending (ties: item asc) whatever
         # the stream-rank order is — the contract every miner reports
@@ -1175,108 +1200,15 @@ class HPrepostMiner:
         f_sups = supports[freq]
         order = np.lexsort((f_items, -f_sups))
         flist_items = f_items[order]
-        for it, s in zip(flist_items.tolist(), f_sups[order].tolist()):
-            itemsets[(int(it),)] = as_sup(s)
+        itemsets = {(int(it),): as_sup(s)
+                    for it, s in zip(flist_items.tolist(), f_sups[order].tolist())}
         peak = int(peak_base)
-        if K == 0 or max_k == 1 or not itemsets or executor.n_segments == 0:
+        if max_k == 1 or not itemsets or executor.n_segments == 0:
             return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
-
-        seed_keep = None
-        if seed is not None and not weighted:
-
-            def seed_keep(ranks_):
-                cand = np.sort(items_arr[ranks_], axis=1)
-                return np.fromiter(
-                    (seed.get(tuple(t), min_count) >= min_count
-                     for t in cand.tolist()),
-                    bool, len(cand),
-                )
-
-        lower, ranks, parents, qarr, allowed = self._level2(C, min_count)
         executor.begin()
-        level = 2
-        slots_per_shard = 0
-        pending = None  # (ranks, slot_of, token, allowed) of the wave in flight
-
-        t0 = time.perf_counter()
-        while len(ranks) or pending is not None:
-            if seed_keep is not None and len(ranks):
-                km = seed_keep(ranks)
-                if not km.all():
-                    stages["host_pruned_seed"] += float((~km).sum())
-                    ranks, parents, qarr, allowed = _rows(km, ranks, parents, qarr, allowed)
-            dispatched = None
-            if len(ranks) and (max_k is None or level <= max_k) and len(itemsets) < cfg.max_itemsets:
-                idx, slot_of, Cpad = self._pack_wave(ranks, parents, qarr, level,
-                                                     slots_per_shard)
-                stages["planned_candidates"] += float(len(ranks))
-                with trace.span("mine.wave", k=level, candidates=len(ranks),
-                                segments=executor.n_segments):
-                    token = executor.dispatch(level, idx, self._group_live(slot_of, Cpad),
-                                              level > 2 and cfg.locality_dispatch)
-                dispatched = (ranks, parents, slot_of, token, allowed)
-                peak = max(peak, int(executor.state_bytes))
-                slots_per_shard = Cpad // self._Mb
-                level += 1
-            if not cfg.pipeline_waves and dispatched is not None:
-                pending = (dispatched[0], dispatched[2], dispatched[3], dispatched[4])
-                dispatched = None
-
-            surv_mask = None
-            surv_ranks = surv_slots = surv_allowed = None
-            if pending is not None:
-                p_ranks, p_slots, p_token, p_allowed = pending
-                # the streaming reduce: per-candidate supports summed over
-                # segments (additivity over disjoint partitions), THEN
-                # thresholded — this blocks on the settled wave
-                with trace.span("mine.reduce", k=level - 1):
-                    host = executor.collect(p_token)
-                peak = max(peak, int(executor.state_bytes))
-                svals = host[p_slots]
-                keep = svals >= min_count
-                if seed_out is not None and len(p_ranks):
-                    # exact settled supports of EVERY candidate (dead ones
-                    # included — what the next refresh's seed prunes)
-                    all_items = np.sort(items_arr[p_ranks], axis=1)
-                    for t, s in zip(all_items.tolist(), svals.tolist()):
-                        seed_out[tuple(t)] = as_sup(s)
-                if keep.any():
-                    emit_items = np.sort(items_arr[p_ranks[keep]], axis=1)
-                    for t, s in zip(emit_items.tolist(), svals[keep].tolist()):
-                        itemsets[tuple(t)] = as_sup(s)
-                surv_mask = np.zeros(host.shape[0], bool)
-                surv_mask[p_slots[keep]] = True
-                surv_ranks, surv_slots = p_ranks[keep], p_slots[keep]
-                surv_allowed = p_allowed[keep]
-                pending = None
-
-            if dispatched is not None:
-                d_ranks, d_parents, d_slot_of, d_token, d_allowed = dispatched
-                if surv_mask is not None:
-                    kept = surv_mask[d_parents]
-                    stages["host_pruned_parent"] += float((~kept).sum())
-                    d_ranks, d_slot_of, d_allowed = _rows(kept, d_ranks, d_slot_of, d_allowed)
-                    if cfg.early_stop:
-                        sub = self._apriori_kept(d_ranks, surv_ranks, K)
-                        if sub is not None:
-                            stages["host_pruned_subset"] += float((~sub).sum())
-                            d_ranks, d_slot_of, d_allowed = _rows(sub, d_ranks, d_slot_of,
-                                                                  d_allowed)
-                pending = (d_ranks, d_slot_of, d_token, d_allowed)
-                ranks, parents, qarr, allowed = self._extensions(
-                    d_ranks, d_slot_of, d_allowed, lower, K)
-            elif surv_mask is not None and not cfg.pipeline_waves:
-                ranks, parents, qarr, allowed = self._extensions(
-                    surv_ranks, surv_slots, surv_allowed, lower, K)
-                if cfg.early_stop and len(ranks):
-                    sub = self._apriori_kept(ranks, surv_ranks, K)
-                    if sub is not None:
-                        stages["host_pruned_subset"] += float((~sub).sum())
-                        ranks, parents, qarr, allowed = _rows(sub, ranks, parents, qarr, allowed)
-            else:
-                ranks, parents, qarr, allowed = _rows(slice(0), ranks, parents, qarr, allowed)
-
-        stages["mining_waves"] = time.perf_counter() - t0
+        peak = self._run_waves(executor, items_arr, C, min_count, itemsets, peak, max_k,
+                               as_sup=as_sup, seed=None if weighted else seed,
+                               seed_out=seed_out, segmented=True)
         return PrepostResult(itemsets, flist_items, len(itemsets), len(itemsets), peak)
 
     def mine(

@@ -117,9 +117,7 @@ def segment_handles(segments: "list[Segment]", order_arr: np.ndarray) -> list[Se
             continue  # hollow: holds none of the ranks, adds 0 everywhere
         loc = s.item_to_local[order_arr]
         g2l = np.where(loc >= 0, loc, s.k).astype(np.int32)
-        out.append(SegmentHandle(planes=s.shard_planes,
-                                 singleton=tuple(p[2] for p in s.shard_planes), g2l=g2l,
-                                 ready=s.ready))
+        out.append(SegmentHandle(planes=s.shard_planes, g2l=g2l, ready=s.ready))
     return out
 
 

@@ -372,11 +372,6 @@ class StreamingMiner:
         )
         return seg, source
 
-    def _segment_key(self, digest: tuple, local_items: np.ndarray) -> str:
-        return segment_key(
-            digest, local_items, self.n_items, self._device_cfg, self.miner.D
-        )
-
     # --------------------------------------------------------------- query
     def mine(self, spec: MineSpec, _seed=None, _seed_out=None) -> MineResult:
         """Serve one query from the live ``SegmentedDB`` (the reduce step

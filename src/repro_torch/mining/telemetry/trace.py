@@ -46,7 +46,12 @@ The spans of a request:
 
 A ``MiningEngine.submit`` opens ``engine.submit`` with
 ``engine.fingerprint`` and ``engine.cache`` inside, then ``prep`` on a
-miss and ``frontend.mine``.
+miss and ``frontend.mine``. A stream query runs the same wave loop:
+
+    stream.query                 (StreamingMiner.mine)
+      mine.waves                 (mine.plan, mine.wave segments=S,
+                                  mine.reduce, mine.emit as above)
+      frontend.finish
 
 Parenting is two-mode: explicit (``parent=`` span id, used across
 threads — the service carries the request root's id on its ``_Pending``

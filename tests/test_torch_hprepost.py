@@ -143,6 +143,35 @@ def test_wave_spans_and_chaos_point(paper_db):
         miner.mine(rows, n_items, 2)
 
 
+# a prepared mine's planning counters, waves, peak and itemset count at
+# min_count 2 (paper DB) and 35 (the random DB), held from before the
+# prepared path ran the one wave loop through an executor
+PREPARED_MINE = {
+    ("paper", True): ((8, 0, 0), 2, 896, 14),
+    ("paper", False): ((8, 0, 0), 2, 896, 14),
+    ("random", True): ((239, 18, 10), 6, 32768, 193),
+    ("random", False): ((211, 0, 10), 5, 32768, 193),
+}
+
+
+@pytest.mark.parametrize("db, pipeline", list(PREPARED_MINE))
+def test_prepared_mine_stage_dict_and_counters(paper_db, db, pipeline):
+    """``mine_prepared``'s stage dict keeps its keys (no ``host_pruned_seed``)
+    and planning counters, and ``stage_counters`` one count a prep stage and
+    a wave and no ``seg_waves``, pipelined or not."""
+    rows, n_items, min_count = (*paper_db, 2) if db == "paper" else (
+        random_db(np.random.default_rng(5), 200, 8, 8), 8, 35)
+    planning, waves, peak, n_sets = PREPARED_MINE[db, pipeline]
+    miner = HPrepostMiner("cpu", HPrepostConfig(candidate_unit=4, pipeline_waves=pipeline))
+    res = miner.mine_prepared(miner.prepare(rows, n_items, min_count), min_count)
+    stages = miner.last_stage_times
+    assert list(stages) == ["job1_flist", "job2_ppc_pack", "f2_scan", "mining_waves", *PLANNING]
+    assert tuple(stages[k] for k in PLANNING) == planning
+    assert stages["mining_waves"] > 0
+    assert miner.stage_counters == {"job1": 1, "job2": 1, "pack": 1, "f2": 1, "waves": waves}
+    assert (res.peak_bytes, len(res.itemsets)) == (peak, n_sets)
+
+
 def test_entry_points_raise_without_cuda(monkeypatch, paper_db):
     from repro_torch.mining import MineSpec, mine
     from repro_torch.mining.miners import HPrepostFrontend

@@ -1,7 +1,7 @@
 """The port's spans in a ``torch.profiler`` trace and in the span table
 (``repro_torch.mining.telemetry.trace``), on the CPU: every span of the
-one-shot and engine paths appears as a range, nested as the code nests
-it; the table's counts and self seconds add up; nothing is recorded with
+one-shot, engine and window-query paths appears as a range, nested as
+the code nests it; the table's counts and self seconds add up; nothing is recorded with
 no sink active; and the ``wave.floor_bytes`` counter never exceeds the
 bytes ``ops.wave_cost`` counts for the same launch."""
 import json
@@ -310,3 +310,60 @@ def test_stream_spans_and_counters_under_the_profiler():
     for metric in (stream_append_ms, stream_query_ms, stream_fold_ms):
         assert metric.read(run) > 0
     assert stream_query_ms.read(run) > 1e3 * tab["stream.readmit"]["total_s"] / 2
+
+
+def test_window_query_opens_the_wave_spans(tmp_path, monkeypatch):
+    """A sliding-window query runs the one wave loop: under the profiler
+    ``mine.waves`` nests in ``stream.query``, and ``mine.plan``,
+    ``mine.wave``, ``mine.reduce`` and ``mine.emit`` nest in ``mine.waves``;
+    one ``mine.wave`` (tagged with the segment count) a counted wave, each
+    launching B1 once a segment; and ``stage_times_s["mining_waves"]``
+    times the region the ``mine.waves`` span holds."""
+    from repro_torch.core import hprepost
+    from repro_torch.mining.stream import StreamSpec
+
+    rows, n_items = random_db(np.random.default_rng(5), 200, 8, 8), 8
+    eng = MiningEngine(device="cpu")
+    for part in np.array_split(rows, 4):  # a window of 3: the first batch expires
+        eng.append(part, n_items, stream="s", stream_spec=StreamSpec(window_batches=3))
+    spec = MineSpec(algorithm="hprepost", min_sup=0.175)
+    miner = eng.stream("s")._fe.miner_for(spec)
+    early_stop = []
+    launch = hprepost.nlist_wave
+
+    def spy(*args, **kw):
+        early_stop.append(kw["early_stop"])
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(hprepost, "nlist_wave", spy)
+    w0 = miner.stage_counters["waves"]
+    rec = telemetry.TraceRecorder()
+    with telemetry.attached(rec), profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eng.submit_stream(spec, stream="s")
+    waves = miner.stage_counters["waves"] - w0
+    assert waves >= 3 and max(len(s) for s in res.itemsets) >= 4
+    assert early_stop == [False] * (3 * waves)
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = {"stream.query", "mine.waves", *WAVES}
+    by_name = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("name") in names:
+            by_name.setdefault(e["name"], []).append(e)
+    assert set(by_name) == names
+    assert len(by_name["stream.query"]) == len(by_name["mine.waves"]) == 1
+    assert inside(by_name["mine.waves"][0], by_name["stream.query"][0])
+    for name in WAVES:
+        assert all(inside(e, by_name["mine.waves"][0]) for e in by_name[name]), name
+
+    tab = trace.profiled()
+    for name in ("mine.wave", "mine.reduce", "mine.emit"):
+        assert tab[name]["count"] == waves, name
+    wave_args = [s["args"] for s in rec.spans.values() if s["name"] == "mine.wave"]
+    assert [(a["k"], a["segments"]) for a in wave_args] == [
+        (k, 3) for k in range(2, 2 + waves)]
+    # two clock reads around one region: equal but for the span's own exit
+    mining_waves, total = res.stage_times_s["mining_waves"], tab["mine.waves"]["total_s"]
+    assert 0 < mining_waves <= total
+    assert total == pytest.approx(mining_waves, abs=1e-3)

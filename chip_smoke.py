@@ -186,6 +186,18 @@ Phases, in order; any failure raises and exits non-zero:
      "16x16", ...])`` on the host (meta, 8 processes): no cell in error, the
      compiled and skipped cells as ``registry.applicable`` says (32 and 8),
      one line a cell. The phase stays within 150 s.
+ 15. the rows' copy (``h2d_phase``): kosarak's 990,002 x 48 int32 rows
+     (190 MB, pageable) to the card four ways, median ms and GB/s of each:
+     the pageable ``.to()`` the miner took before its staging ring, the
+     ring (``StagingRing.copy`` into a preallocated block, and
+     ``HPrepostMiner._shard_rows`` whole), the ring's host fills alone
+     (no DMA) and the pinned DMA alone (one 190 MB pinned buffer; the
+     ring's chunks from pinned slots, no fill), each copy after an untimed
+     one-shot mine; every staged block equal to the pageable one bit for
+     bit; then the sweep over slot bytes, slots and fillers that fixed
+     ``repro_torch.device``'s constants, with
+     ``torch.get_num_threads()``, the CPUs the process may use, and the
+     card and its power limit.
 Then one JSON line describing the kernels (launches: phases 4, 6, 7, 8, 9,
 10 and 14), and last the device line.
 
@@ -2717,6 +2729,104 @@ def tensors_equal(name: str, got, want) -> None:
                              f"run, max abs error {int((got.long() - want.long()).abs().max())}")
 
 
+def h2d_phase(smi: str, rows: np.ndarray, n_items: int, min_count: int, reps: int = 9) -> dict:
+    """Phase 15 (see the module docstring): ``rows`` (C-contiguous int32,
+    pageable) to the card. Each timed copy follows an untimed one-shot mine
+    of ``rows`` at ``min_count``, as a request of the one-shot cell finds the
+    host's caches; host-clock medians over ``reps`` copies, each ending in a
+    synchronise, after one warm-up. -> the measured rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import device as rd
+    from repro_torch.core.hprepost import HPrepostMiner
+
+    dev = torch.device("cuda")
+    nbytes = rows.nbytes
+    miner = HPrepostMiner(dev)
+
+    def gbps(ms):
+        return nbytes / ms / 1e6
+
+    def median_ms(fn, n=reps):
+        fn()
+        ts = []
+        for _ in range(n):
+            miner.mine(rows, n_items, min_count)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    log(f"h2d: {rows.shape[0]:,} x {rows.shape[1]} int32 rows, {nbytes:,} bytes; "
+        f"torch.get_num_threads() {torch.get_num_threads()}, CPUs usable "
+        f"{len(os.sched_getaffinity(0))}, OMP_NUM_THREADS {os.environ.get('OMP_NUM_THREADS')}; {smi}")
+    src = torch.from_numpy(rows)
+    want = src.to(dev)
+    block = torch.empty_like(want)
+    out = {}
+
+    def report(name, ms, **extra):
+        out[name] = dict(ms=round(ms, 4), gb_s=round(gbps(ms), 2), **extra)
+        log(f"  h2d {name}: {ms:.3f} ms, {gbps(ms):.2f} GB/s"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    report("pageable_to", median_ms(lambda: src.to(dev)))
+    ring = rd.StagingRing()
+    report("ring", median_ms(lambda: ring.copy(rows, block)), slot_bytes=ring.slot_bytes,
+           slots=ring.slots, fillers=ring.fillers)
+    tensors_equal("h2d ring block", block, want)
+    report("shard_rows", median_ms(lambda: miner._shard_rows(rows)))
+    tensors_equal("h2d _shard_rows block", miner._shard_rows(rows)[0], want)
+
+    # the ring's halves alone: its fillers' copies into pinned slots with no
+    # DMA, and its chunks' DMAs from pinned slots with no fill
+    S, n_slots = rd.SLOT_BYTES, rd.SLOTS
+    slots = [torch.empty(S, dtype=torch.uint8, pin_memory=True) for _ in range(n_slots)]
+    views = [t.numpy() for t in slots]
+    src_b = rows.reshape(-1).view(np.uint8)
+    pool = ThreadPoolExecutor(rd.FILLERS)
+
+    def fills():
+        futs = [pool.submit(np.copyto, views[i % n_slots][:min(S, nbytes - a)], src_b[a:a + S])
+                for i, a in enumerate(range(0, nbytes, S))]
+        for f in futs:
+            f.result()
+
+    report("fills_alone", median_ms(fills))
+    pool.shutdown()
+    pinned = src.pin_memory()
+    report("pinned_dma_alone", median_ms(lambda: block.copy_(pinned, non_blocking=True)))
+    block_b = block.view(-1).view(torch.uint8)
+
+    def dmas():
+        for i, a in enumerate(range(0, nbytes, S)):
+            m = min(S, nbytes - a)
+            block_b[a:a + m].copy_(slots[i % n_slots][:m], non_blocking=True)
+
+    report("chunk_dmas_alone", median_ms(dmas))
+    del slots, views, pinned
+
+    # the sweep that fixed the ring's constants
+    sweep = []
+    for slot_mib in (4, 8, 16):
+        for n in (4, 8):
+            for fillers in (2, 3, 4, 6, 8):
+                r = rd.StagingRing(slot_bytes=slot_mib << 20, slots=n, fillers=fillers)
+                sweep.append((slot_mib, n, fillers, round(median_ms(lambda: r.copy(rows, block), n=5), 3)))
+                r._pool.shutdown()
+    tensors_equal("h2d sweep's last block", block, want)
+    log("  h2d sweep (slot MiB, slots, fillers, median ms): " + json.dumps(sweep))
+    best = min(sweep, key=lambda t: t[3])
+    log(f"  h2d best of the sweep: slot {best[0]} MiB, {best[1]} slots, {best[2]} fillers, "
+        f"{best[3]:.3f} ms ({gbps(best[3]):.2f} GB/s)")
+    out["sweep"] = sweep
+    del want, block, block_b
+    torch.cuda.synchronize()
+    return out
+
+
 def dryrun_phase(smi: str, K, dev="cuda", scale: float = 1.0, sweep_mesh: str = "16x16",
                  jobs: int = 8) -> tuple[dict, dict]:
     """Phase 14 (see the module docstring). ``dev="cpu"`` with a small
@@ -3219,6 +3329,9 @@ def main() -> int:
     dry_launches, dry_entries = dryrun_phase(smi, K)
     for kname, e in dry_entries.items():
         entries[kname]["at_fim_production"] = e
+
+    # ------------------------------------------------------- 15. the rows' copy
+    h2d_phase(smi, np.require(data["kosarak"][0], np.int32, ["C"]), data["kosarak"][1], counts["kosarak"])
 
     kernels = []
     for kname, e in entries.items():

@@ -52,7 +52,7 @@ import torch
 from repro_torch.core import encoding as enc
 from repro_torch.core.ppc import build_ppc_torch
 from repro_torch.core.prepost import PrepostResult
-from repro_torch.device import wait_ready
+from repro_torch.device import StagingRing, wait_ready
 from repro_torch.fault import failures
 from repro_torch.kernels.cooccur.ops import cooccurrence_matrix
 from repro_torch.kernels.histogram.ops import item_histogram
@@ -456,6 +456,12 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr)
 
 
+def _staged(device: torch.device) -> bool:
+    """Whether rows reach ``device`` through a staging ring: CUDA only. On
+    the CPU a staged copy would only add a copy."""
+    return device.type == "cuda"
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
@@ -507,6 +513,8 @@ class HPrepostMiner:
         # come straight from the config knobs. Memoized per wave shape.
         self.tuner = None
         self._plan_cache: dict[tuple[int, int], tune.KernelPlan] = {}
+        # the rows' pinned slots, made at the first prepare on a CUDA position
+        self._staging = StagingRing()
 
     @property
     def _Mb(self) -> int:
@@ -639,16 +647,27 @@ class HPrepostMiner:
     # (``prepare`` runs them; ``launch.dryrun_fim`` times and costs each)
     def _shard_rows(self, rows: np.ndarray) -> list[torch.Tensor]:
         """Per data shard d, its block of ``ceil(R/D)`` rows (the tail
-        padded with PAD rows) on position (d, 0)."""
+        padded with PAD rows) on position (d, 0). A CUDA position's block
+        arrives through the miner's staging ring, its PAD rows filled on
+        the device; a CPU position reads a whole block in place."""
         R0, L = rows.shape
         Rs = -(-R0 // self.D)
         rows_c = np.require(rows, np.int32, ["C"])
         out = []
         for d in range(self.D):
+            dev = self._grid[d, 0]
             block = rows_c[d * Rs:(d + 1) * Rs]
-            if len(block) < Rs:  # the tail shard: PAD rows up to Rs
-                block = np.concatenate([block, np.full((Rs - len(block), L), enc.PAD, np.int32)])
-            out.append(_host_tensor(block).to(self._grid[d, 0]))
+            staged = _staged(dev)
+            if not staged and len(block) == Rs:
+                out.append(_host_tensor(block))
+                continue
+            dst = torch.empty((Rs, L), dtype=torch.int32, device=dev)
+            if staged:
+                trace.count("prep.h2d_chunks", self._staging.copy(block, dst[:len(block)]))
+            else:
+                dst[:len(block)].copy_(_host_tensor(block))
+            dst[len(block):].fill_(enc.PAD)
+            out.append(dst)
         return out
 
     def _job1(self, shard_rows, n_items: int) -> torch.Tensor:

@@ -1016,3 +1016,83 @@ def test_kernel_and_plain_routes_charge_the_same_cost(cuda):
             _, pc = cost.trace(fn, T(rows, dev), T(w, dev), **kw)
             charged.append((pc.hbm_bytes, pc.flops))
         assert charged[0] == charged[1], fn.__name__
+
+
+# ------------------------------------------------ the rows' staged copy to the card
+@pytest.fixture(scope="module")
+def kosarak_rows():
+    rows, n_items = load("kosarak", scale=1.0)
+    return np.require(rows, np.int32, ["C"]), n_items
+
+
+def _assert_same_payload(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if isinstance(got[k], np.ndarray):
+            assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+        else:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("shape, n_rows", [((1, 1), 990_002), ((2, 1), 123_751)],
+                         ids=["kosarak-1x1", "odd-rows-2x1"])
+def test_rows_staged_to_the_card(cuda, kosarak_rows, shape, n_rows):
+    """The rows through the miner's staging ring: kosarak's 990,002 x 48
+    int32 rows (190 MB) on the 1x1 mesh, and an odd row count on a (2, 1)
+    mesh whose positions share the card. Each block equals the padded host
+    rows bit for bit; the copy takes no device memory beyond the blocks;
+    the prepared payload equals the CPU miner's; and two threads preparing
+    on one miner at once each get their own payload."""
+    import threading
+
+    from repro_torch.launch.mesh import make_mesh
+
+    rows, n_items = kosarak_rows
+    rows = rows[:n_rows]
+    assert rows.shape == (n_rows, 48)
+    mc = int(np.ceil(0.01 * n_rows))
+    D = shape[0]
+    Rs = -(-n_rows // D)
+    axes = ("data", "model")
+    gpu = HPrepostMiner(mesh=make_mesh(shape, axes, [cuda] * D))
+    cpu = HPrepostMiner(mesh=make_mesh(shape, axes, ["cpu"] * D))
+    padded = np.concatenate([rows, np.full((D * Rs - n_rows, 48), enc.PAD, np.int32)])
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    # the D blocks alone, as the caching allocator rounds them
+    plain, want_peak = peak_of(lambda: [torch.empty((Rs, 48), dtype=torch.int32, device=cuda)
+                                        for _ in range(D)])
+    del plain
+    blocks, peak = peak_of(lambda: gpu._shard_rows(rows))
+    assert peak == want_peak >= D * Rs * 48 * 4
+    for d, b in enumerate(blocks):
+        assert b.is_cuda and b.dtype == torch.int32 and b.shape == (Rs, 48)
+        assert b.cpu().numpy().tobytes() == padded[d * Rs:(d + 1) * Rs].tobytes(), d
+    del blocks
+
+    want = cpu.prepare(rows, n_items, mc).to_host()
+    _assert_same_payload(gpu.prepare(rows, n_items, mc).to_host(), want)
+
+    other = np.ascontiguousarray(rows[::-1])
+    wants = [want, gpu.prepare(other, n_items, mc).to_host()]
+    got = [None, None]
+
+    def prepare(i, r):
+        got[i] = gpu.prepare(r, n_items, mc).to_host()
+
+    threads = [threading.Thread(target=prepare, args=(i, r)) for i, r in enumerate((rows, other))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, wants):
+        _assert_same_payload(g, w)
+    torch.cuda.synchronize()

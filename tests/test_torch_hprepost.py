@@ -407,3 +407,141 @@ def test_extension_step_carries_allowed_sets(mode, k_items):
             ranks, _, allowed = _check_extension_step(ranks, slots, allowed, pair_ok, lower)
         if k_items >= 8:
             assert len(ranks) and ranks.shape[1] == 5
+
+
+# ------------------------------------------- the rows' copy through a staging ring
+SLOT = 64  # bytes a slot in these tests: 16 int32 entries
+
+
+def staged_miner(monkeypatch, shape=(1, 1), fillers=1):
+    """A CPU miner whose positions take the staged copy a CUDA position
+    takes, through a ring of three ``SLOT``-byte slots."""
+    from repro_torch.core import hprepost
+    from repro_torch.device import StagingRing
+    from repro_torch.launch.mesh import make_mesh
+
+    monkeypatch.setattr(hprepost, "_staged", lambda dev: True)
+    miner = HPrepostMiner(mesh=make_mesh(shape, ("data", "model"),
+                                         devices=["cpu"] * (shape[0] * shape[1])))
+    miner._staging = StagingRing(slot_bytes=SLOT, slots=3, fillers=fillers)
+    return miner
+
+
+def padded_blocks(rows, D):
+    """The reference's shard blocks: ``rows`` padded with PAD rows to a
+    multiple of D, cut into D blocks."""
+    Rs = -(-len(rows) // D)
+    pad = np.full((D * Rs - len(rows), rows.shape[1]), -1, np.int32)
+    return np.split(np.concatenate([rows, pad]), D)
+
+
+@pytest.mark.parametrize("fillers", [1, 3])
+@pytest.mark.parametrize("R, L", [
+    (0, 4),    # empty
+    (3, 4),    # smaller than one slot
+    (4, 4),    # exactly one slot
+    (17, 1),   # one element past a slot
+    (37, 4),   # several slots, a ragged tail
+    (29, 5),   # L does not divide the slot
+], ids=["empty", "under-slot", "one-slot", "slot-plus-one", "ragged", "L-not-dividing"])
+def test_staged_block_bit_for_bit(monkeypatch, R, L, fillers):
+    """The staged copy lands the rows bit for bit, twice through one ring
+    (the second copy reuses every slot), from a read-only source."""
+    miner = staged_miner(monkeypatch, fillers=fillers)
+    rng = np.random.default_rng(R)
+    for _ in range(2):
+        rows = rng.integers(-1, 1 << 30, size=(R, L)).astype(np.int32)
+        rows.flags.writeable = False
+        (block,) = miner._shard_rows(rows)
+        assert block.dtype == torch.int32 and block.shape == (R, L)
+        assert block.numpy().tobytes() == padded_blocks(rows, 1)[0].tobytes()
+
+
+def test_staged_mesh_odd_rows_payload(monkeypatch):
+    """A D = 2 mesh over an odd row count: the staged blocks are the padded
+    source's halves, the tail's last row PAD on the device side, and the
+    prepared payload equals the in-place path's."""
+    from repro_torch.launch.mesh import make_mesh
+
+    rows, n_items = random_db(np.random.default_rng(5), 101, 12, 6), 12
+    plain = HPrepostMiner(mesh=make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"]))
+    want = plain.prepare(rows, n_items, 3).to_host()
+    miner = staged_miner(monkeypatch, (2, 1), fillers=2)
+    blocks = miner._shard_rows(rows)
+    for got, ref in zip(blocks, padded_blocks(rows, 2)):
+        assert got.numpy().tobytes() == ref.tobytes()
+    assert (blocks[1][-1] == -1).all() and (blocks[0] != -1).any()
+    assert_payload_equal(miner.prepare(rows, n_items, 3).to_host(), want)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_h2d_chunks_counter(monkeypatch, staged):
+    """``prep.h2d_chunks`` counts ceil(bytes / slot) for each staged block;
+    the in-place CPU path records nothing."""
+    from repro_torch.launch.mesh import make_mesh
+
+    rows, n_items = random_db(np.random.default_rng(6), 45, 10, 5), 10
+    if staged:
+        miner = staged_miner(monkeypatch, (2, 1))
+    else:
+        miner = HPrepostMiner(mesh=make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"]))
+    _, tab = under_profiler(lambda: miner.prepare(rows, n_items, 2))
+    if staged:
+        Rs = -(-len(rows) // 2)
+        per_block = [-(-(n * rows.shape[1] * 4) // SLOT) for n in (Rs, len(rows) - Rs)]
+        assert tab["prep.h2d_chunks"] == {"count": 2, "total": sum(per_block)}
+    else:
+        assert "prep.h2d_chunks" not in tab
+
+
+def test_staging_ring_concurrent_callers():
+    """Callers more than the cores copy through one ring at once, with a
+    short switch interval: every copy lands its own bytes (callers that
+    shared a slot would mix them)."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.device import StagingRing
+
+    slot = 1 << 18  # large enough that a slot's fill leaves the interpreter lock
+    ring = StagingRing(slot_bytes=slot, slots=3, fillers=2)
+    n = 2 * (os.cpu_count() or 2) + 1
+    srcs = [np.random.default_rng(i).integers(0, 1 << 30, size=(4099, 131)).astype(np.int32)
+            for i in range(n)]
+    bad = []
+
+    def caller(i):
+        for _ in range(5):
+            dst = torch.empty((4099, 131), dtype=torch.int32)
+            chunks = ring.copy(srcs[i], dst)
+            if chunks != -(-srcs[i].nbytes // slot) or not np.array_equal(dst.numpy(), srcs[i]):
+                bad.append(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=caller, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+
+
+def test_staging_ring_refuses_what_it_cannot_copy():
+    from repro_torch.device import StagingRing
+
+    ring = StagingRing(slot_bytes=SLOT)
+    src = np.zeros((6, 4), np.int32)
+    with pytest.raises(ValueError, match="bytes"):
+        ring.copy(src, torch.empty((5, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ring.copy(src, torch.empty((4, 6), dtype=torch.int32).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        ring.copy(np.zeros((4, 6), np.int32).T, torch.empty((6, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="2 slots"):
+        StagingRing(slots=1)
